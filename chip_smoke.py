@@ -234,7 +234,7 @@ def main() -> int:
     q = 12
     pose_q = torch.as_tensor(odom[q] + np.array([0.03, -0.02, 0.01]), **f32)
     k1_entries(fspec.fine_spec, state.fine.probs, state.fine.offset,
-             pose_q, pts[q], nvs[q], "front_b1")
+               pose_q, pts[q], nvs[q], "front_b1")
 
     # back end: B=4 chain maps of 2432², ten scans each
     B = 4

@@ -17,6 +17,10 @@ from roborts_slam_tpu_torch.convert import store_from_jax
 from roborts_slam_tpu_torch.engine import ScanStore
 from roborts_slam_tpu_torch.models.scan import LaserModel as TLaser
 
+# one thread: float sums are then taken in one fixed order on any machine
+# (these replays amplify last-bit differences, see the tolerances below)
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIM_YAML = os.path.join(REPO, "configs", "simulation.yaml")
 OVER = dict(fine_map_resolution=0.02, world_size=24.0)

@@ -21,6 +21,10 @@ import roborts_slam_tpu_torch.frontend.processor as tfp
 from roborts_slam_tpu.models.scan import LaserModel, ranges_to_packed
 from roborts_slam_tpu_torch.convert import STATE_KEYS, state_from_jax
 
+# one thread: float sums are then taken in one fixed order on any machine
+# (these replays amplify last-bit differences, see the tolerances below)
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIM_YAML = os.path.join(REPO, "configs", "simulation.yaml")
 OVER = dict(fine_map_resolution=0.02, world_size=24.0, max_points=384)
