@@ -326,8 +326,47 @@ def main() -> int:
     args = k4_args(inits + torch.as_tensor([0.6, -0.4, 0.5], **f32))
     got, want = raycarve.bad_ray_count(*args), raycast.bad_rays_plain(*args)
     assert torch.equal(got, want) and int(got.sum()) > 0, (got, want)
-    emit({"phase": "kernels_checked", "bad_counts_displaced": got.tolist(),
-          "entries": len(entries)})
+    bad_displaced = got.tolist()
+
+    # edge cases, kernel against plain version (not timed): rays that leave
+    # the map on the low side (negative DDA numerators: the kernels' floor
+    # division), a sensor outside the map, an empty scan, a pose far outside
+    edge = {}
+    corner = torch.as_tensor([-15.9, -15.8, 0.7], **f32)      # map cell (2, 4)
+    outside = torch.as_tensor([-16.5, -17.0, 2.0], **f32)
+    for name, pose in (("corner", corner), ("outside", outside)):
+        st, en, bm = (t.contiguous() for t in raster._scan_cells(
+            ps.inv_res, pub.offset, pts[q], msk[q], pose))
+        got = raycarve.ray_mark_image(st, en, bm, ps.height, ps.width)
+        want = raster.mark_image_plain(st, en, bm, ps.height, ps.width)
+        assert torch.equal(got, want), f"ray_mark_image[{name}] differs"
+        edge[f"carve_{name}_cells"] = int((got > 0).sum())
+        assert int((en < 0).any()) == 1
+    assert edge["carve_corner_cells"] > 0
+    args = k4_args(torch.stack([corner, outside, pose_q]))
+    got, want = raycarve.bad_ray_count(*args), raycast.bad_rays_plain(*args)
+    assert torch.equal(got, want), (got, want)
+    edge["check_counts"] = got.tolist()
+    fs = fspec.fine_spec
+    far = torch.as_tensor([500.0, -400.0, 0.1], **f32)
+    for name, pose, n_valid in (("empty_scan", pose_q, 0), ("far_pose", far, nvs[q])):
+        center = world_to_map_pose(state.fine.offset, fs.inv_res, pose)
+        g = correlative.candidate_grid(fs, tiers["fine"], pts[q], n_valid, center)
+        args = (state.fine.probs[None], g.rx[None].contiguous(), g.ry[None].contiguous(),
+                g.svalid[None].contiguous(), g.xs[None].contiguous(),
+                g.ys[None].contiguous(), float(fs.default_prob),
+                torch.full((1,), g.divisor, **f32))
+        got = correlation.correlation_scores(*args)
+        want = correlative.correlation_scores_plain(*args)
+        assert float((got - want).abs().max()) <= 1e-5 and bool(torch.isfinite(got).all())
+        edge[f"score_{name}"] = float(got.mean())
+        # every valid sample falls outside the map: default_prob each
+        expect = fs.default_prob * int(g.svalid.sum()) / g.divisor
+        assert abs(edge[f"score_{name}"] - expect) < 1e-5, (name, expect)
+    assert edge["score_empty_scan"] == 0.0
+    torch.cuda.synchronize()
+    emit({"phase": "kernels_checked", "bad_counts_displaced": bad_displaced,
+          "edge_cases": edge, "entries": len(entries)})
     del state, chain_maps, cp, cm, cpo
     torch.cuda.empty_cache()
 
