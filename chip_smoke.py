@@ -3,23 +3,39 @@
 
     python3 chip_smoke.py [--profile [DIR]]
 
-Drives the port's main path — the blocking per-scan SLAM loop — at full
-width (``configs/simulation.yaml``, 1152 points, 30 m world: a 3072² fine
-map, 2432² back-end chain maps) on the scans of
-``tests/data/golden_willow.npz``, builds the CUDA kernels from the sources
-in this checkout, holds each kernel against its plain PyTorch version on the
-card, and shows that the main path launched every kernel. Each phase prints
-one JSON line; any failed phase raises and the process exits non-zero. It
-needs one CUDA device and never falls back to the CPU. The last line is
-``{"ok": true, "device": {...}}``.
+Builds the CUDA kernels from the sources in this checkout, holds each kernel
+against its plain PyTorch version on the card, drives the port's main paths
+at full width and shows that each launched its kernels:
+
+- legs 1-2: the blocking per-scan SLAM loop under ``configs/simulation.yaml``
+  (1152 points, 30 m world: a 3072² fine map, 2432² back-end chain maps) on
+  the scans of ``tests/data/golden_willow.npz``, first correlation kernel;
+- leg 3: ``python -m roborts_slam_tpu_torch run`` (called in-process) under
+  ``configs/real_robot.yaml`` unchanged, with ``ROBORTS_CORR_KERNEL=2`` (the
+  second correlation kernel), over a log simulated here from a seed: a
+  closed corridor loop of 24 m x 16 m driven at 1 m/s with a 1081-beam 10 m
+  lidar — sweep de-distortion, the rolling 15 m match-map window, chain
+  matches and loop closures at the shipped 7 m link radius;
+- leg 4: ``run`` with no ``--config`` (the default ``SlamConfig()``: the
+  optimize matcher first) over the first 200 scans of that log, and two
+  40-scan legs with the branch-and-bound coarse stage and with the windowed
+  (running-range) match.
+
+Each phase prints one JSON line; any failed phase raises and the process
+exits non-zero. It needs one CUDA device and never falls back to the CPU.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -30,6 +46,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
 POS_TOL, ANG_TOL = 2e-3, 2e-3  # trajectory agreement bar (m, rad)
+LOOP_SEED = 20            # seed of the simulated corridor-loop log
+LOOP_LAPS = 1.15          # laps of the 66.3 m centre line driven in leg 3
+ATE_BAR_M = 0.3           # leg 3's bar on the ATE against the simulated truth
 
 
 def emit(obj):
@@ -61,6 +80,94 @@ def bound(bytes_moved: float, operations: float):
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
     to = operations / F32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def corridor_loop_map(GroundTruthMap):
+    """Ground truth of the corridor loop, built in memory at 0.05 m cells: a
+    closed corridor 3 m wide round a solid 18 m x 10 m block inside a
+    24 m x 16 m hall. Texture every 2 m on both sides of every corridor:
+    door recesses (0.8 m wide, 0.5 m deep) in the outer wall, buttresses
+    (0.5 m wide, 0.3 m deep) on the block."""
+    res = 0.05
+    x0, y0 = -1.0, -1.0                           # world corner of cell (0, 0)
+    occ = np.ones((int(18 / res), int(26 / res)), bool)
+
+    def box(xa, xb, ya, yb, value):
+        occ[int(round((ya - y0) / res)):int(round((yb - y0) / res)),
+            int(round((xa - x0) / res)):int(round((xb - x0) / res))] = value
+
+    box(0, 24, 0, 16, False)                      # the hall
+    box(3, 21, 3, 13, True)                       # the block
+    for x in np.arange(1.0, 23.0, 2.0):
+        box(x, x + 0.8, -0.5, 0, False)
+        box(x + 1, x + 1.8, 16, 16.5, False)
+    for y in np.arange(1.0, 15.0, 2.0):
+        box(-0.5, 0, y, y + 0.8, False)
+        box(24, 24.5, y + 1, y + 1.8, False)
+    for x in np.arange(4.0, 20.0, 2.0):
+        box(x, x + 0.5, 2.7, 3, True)
+        box(x + 1, x + 1.5, 13, 13.3, True)
+    for y in np.arange(4.0, 12.0, 2.0):
+        box(2.7, 3, y, y + 0.5, True)
+        box(21, 21.3, y + 1, y + 1.5, True)
+    return GroundTruthMap(occupancy=occ, free=~occ, resolution=res,
+                          origin=np.array([x0, y0]))
+
+
+def corridor_loop_path(laps: float) -> np.ndarray:
+    """Centre line of the corridor (a 21 m x 13 m rectangle with corners
+    rounded at 1 m radius, 66.3 m round), anticlockwise from the middle of
+    the bottom corridor, as a polyline of 2 cm steps over ``laps`` laps."""
+    r, ds = 1.0, 0.02
+    xa, xb, ya, yb = 1.5, 22.5, 1.5, 14.5
+    pts = []
+
+    def line(p, q):
+        n = max(int(np.hypot(q[0] - p[0], q[1] - p[1]) / ds), 1)
+        pts.extend(np.linspace(p, q, n, endpoint=False))
+
+    def arc(c, a0):
+        n = int(r * np.pi / 2 / ds)
+        a = a0 + np.linspace(0, np.pi / 2, n, endpoint=False)
+        pts.extend(np.stack([c[0] + r * np.cos(a), c[1] + r * np.sin(a)], -1))
+
+    line((12.0, ya), (xb - r, ya))
+    arc((xb - r, ya + r), -np.pi / 2)
+    line((xb, ya + r), (xb, yb - r))
+    arc((xb - r, yb - r), 0.0)
+    line((xb - r, yb), (xa + r, yb))
+    arc((xa + r, yb - r), np.pi / 2)
+    line((xa, yb - r), (xa, ya + r))
+    arc((xa + r, ya + r), np.pi)
+    line((xa + r, ya), (12.0, ya))
+    lap = np.asarray(pts)
+    whole, part = int(laps), laps - int(laps)
+    return np.concatenate([lap] * whole + [lap[:int(len(lap) * part) + 1]])
+
+
+@contextlib.contextmanager
+def patched(owner, name, wrapper_of):
+    """Replace ``owner.name`` by ``wrapper_of(original)`` inside the block."""
+    original = getattr(owner, name)
+    setattr(owner, name, wrapper_of(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+@contextlib.contextmanager
+def corr_kernel(version: int):
+    """``ROBORTS_CORR_KERNEL`` set to ``version`` inside the block."""
+    before = os.environ.get("ROBORTS_CORR_KERNEL")
+    os.environ["ROBORTS_CORR_KERNEL"] = str(version)
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["ROBORTS_CORR_KERNEL"]
+        else:
+            os.environ["ROBORTS_CORR_KERNEL"] = before
 
 
 def profile_frontend(SlamEngine, config, laser, ranges, odom, times, out_dir, n=30):
@@ -118,8 +225,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
 
+    import yaml
+
     from roborts_slam_tpu_torch import SlamEngine, load_config
-    from roborts_slam_tpu_torch.backend.processor import BackendSpec
+    from roborts_slam_tpu_torch.__main__ import main as cli_main
+    from roborts_slam_tpu_torch.backend.processor import Backend, BackendSpec
+    from roborts_slam_tpu_torch.frontend import matchers
+    from roborts_slam_tpu_torch.io.pgm import GroundTruthMap
+    from roborts_slam_tpu_torch.io.scan_log import ScanLog
+    from roborts_slam_tpu_torch.io.simulate import path_to_trajectory, simulate_log
+    from roborts_slam_tpu_torch.utils.evaluation import ate_rmse, match_by_time
     from roborts_slam_tpu_torch.frontend.processor import (
         FrontendSpec, init_frontend_state,
     )
@@ -168,10 +283,30 @@ def main() -> int:
     # ---- phase 3: every kernel against its plain version, on the card ----
     tiers = {"coarse": fspec.matcher.coarse, "fine": fspec.matcher.fine,
              "super_fine": fspec.matcher.super_fine}
-    entries = {}
+    # the real-robot profile: 0.025 m fine map in a 15 m window (640²), 1024²
+    # chain maps, its own tier thresholds (the tier geometry is the same)
+    rr_config = load_config(str(ROOT / "configs" / "real_robot.yaml"))
+    rr_fspec = FrontendSpec.from_config(rr_config, laser.range_max)
+    rr_bspec = BackendSpec.from_config(rr_config, laser.range_max, rr_fspec.pub_spec)
+    assert (rr_fspec.fine_spec.height, rr_bspec.fine_spec.height,
+            rr_fspec.pub_spec.height, rr_config.max_points) == (640, 1024, 1024, 1152)
+    rr_tiers = {"coarse": rr_fspec.matcher.coarse, "fine": rr_fspec.matcher.fine,
+                "super_fine": rr_fspec.matcher.super_fine}
+    K1 = dict(fn=correlation.correlation_scores, name="correlation_scores",
+              source="roborts_slam_tpu_torch/ops/cuda/correlation.cu",
+              replaces="roborts_slam_tpu/ops/pallas/correlation.py:206")
+    K2 = dict(fn=correlation.correlation_scores_v2, name="correlation_scores_v2",
+              source="roborts_slam_tpu_torch/ops/cuda/correlation_v2.cu",
+              replaces="roborts_slam_tpu/ops/pallas/correlation.py:407")
+    entries = {}          # what the last ``kernels`` line lists
+    both_kernels = []     # every shape, both correlation kernels side by side
 
-    def k1_entries(spec, probs, offset, poses, points, n_valid, key):
-        for tname, params in tiers.items():
+    def corr_entries(spec, tier_params, probs, offset, poses, points, n_valid,
+                     key, listed):
+        """Both correlation kernels against the one plain version on one
+        shape per tier; ``listed`` names the kernel whose entries go into the
+        ``kernels`` line (the one the main path runs at this shape)."""
+        for tname, params in tier_params.items():
             center = world_to_map_pose(offset, spec.inv_res, poses)
             grid = correlative.candidate_grid(spec, params, points, n_valid, center)
             lead = probs.shape[:-2]
@@ -186,12 +321,15 @@ def main() -> int:
                     grid.ys.reshape(B, N).contiguous(),
                     float(spec.default_prob),
                     torch.full((B,), grid.divisor, **f32))
-            got = correlation.correlation_scores(*args)
             want = correlative.correlation_scores_plain(*args)
+            got = {k["name"]: k["fn"](*args) for k in (K1, K2)}
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            assert err <= 1e-5, f"{key}:{tname}: kernel vs plain {err}"
-            assert bool(torch.isfinite(got).all())
+            errs = {}
+            for kname, g in got.items():
+                errs[kname] = float((g - want).abs().max())
+                assert errs[kname] <= 1e-5, f"{key}:{tname}: {kname} vs plain {errs[kname]}"
+                assert bool(torch.isfinite(g).all())
+            k2_minus_k1 = float((got[K2["name"]] - got[K1["name"]]).abs().max())
             # yardstick: one torch.gather over precomputed indices (+ the
             # sum); timed here, called nowhere in the package
             H, W = probs.shape[-2:]
@@ -212,19 +350,26 @@ def main() -> int:
                            + 2 * B * N * 4 + B * 4 + B * A * N * N * 4)
             operations = B * A * n_samples * (N * N + 4 * N)
             bms, by = bound(bytes_moved, operations)
-            entries[f"{key}:{tname}"] = {
-                "name": f"correlation_scores[{key}:{tname}]", "route": "cuda",
-                "source": "roborts_slam_tpu_torch/ops/cuda/correlation.cu",
-                "replaces": "roborts_slam_tpu/ops/pallas/correlation.py:206",
-                "shape": [B, A, S, N, H, W], "launches": 0,
-                "max_abs_err": err,
-                "ms": time_ms(lambda: correlation.correlation_scores(*args)),
+            shared = {
+                "shape": [B, A, S, N, H, W],
                 "plain_ms": time_ms(
                     lambda: correlative.correlation_scores_plain(*args), reps=20),
                 "bound_ms": bms, "bound_by": by,
                 "library_ms": time_ms(lib, reps=20),
                 "cells_touched": touched,
             }
+            # the two kernels timed in turns: first, second, second, first
+            ms = {k["name"]: [] for k in (K1, K2)}
+            for k in (K1, K2, K2, K1):
+                ms[k["name"]].append(time_ms(lambda: k["fn"](*args), reps=10))
+            for k in (K1, K2):
+                entry = {"name": f"{k['name']}[{key}:{tname}]", "route": "cuda",
+                         "source": k["source"], "replaces": k["replaces"],
+                         "launches": 0, "max_abs_err": errs[k["name"]],
+                         "ms": statistics.mean(ms[k["name"]]), **shared}
+                both_kernels.append({**entry, "max_abs_k2_minus_k1": k2_minus_k1})
+                if k is listed:
+                    entries[f"{key}:{tname}"] = entry
 
     # front end: a 3072² fine map stamped with the first scans at their odometry
     state = init_frontend_state(fspec, dev)
@@ -233,8 +378,8 @@ def main() -> int:
                           torch.as_tensor(odom[i], **f32))
     q = 12
     pose_q = torch.as_tensor(odom[q] + np.array([0.03, -0.02, 0.01]), **f32)
-    k1_entries(fspec.fine_spec, state.fine.probs, state.fine.offset,
-               pose_q, pts[q], nvs[q], "front_b1")
+    corr_entries(fspec.fine_spec, tiers, state.fine.probs, state.fine.offset,
+                 pose_q, pts[q], nvs[q], "front_b1", K1)
 
     # back end: B=4 chain maps of 2432², ten scans each
     B = 4
@@ -251,7 +396,31 @@ def main() -> int:
         cp, cm, cpo, torch.ones((B, 10), dtype=torch.bool, device=dev))
     inits = pose_q[None] + torch.as_tensor(
         [[0, 0, 0], [0.02, 0, 0], [0, 0.02, 0], [0, 0, 0.01]], **f32)
-    k1_entries(bs, chain_maps.probs, boff, inits, pts[q], nvs[q], "chain_b4")
+    corr_entries(bs, tiers, chain_maps.probs, boff, inits, pts[q], nvs[q],
+                 "chain_b4", K1)
+
+    # the real-robot profile's shapes: a 640² window map (B=1) and 1024²
+    # chain maps (B=4), stamped from the same scans
+    rr_state = init_frontend_state(rr_fspec, dev)
+    for i in range(0, 10):
+        raster.stamp_scan(rr_fspec.fine_spec, rr_state.fine, pts[i], msk[i],
+                          torch.as_tensor(odom[i], **f32))
+    corr_entries(rr_fspec.fine_spec, rr_tiers, rr_state.fine.probs,
+                 rr_state.fine.offset, pose_q, pts[q], nvs[q], "rr_front_b1", K2)
+    rbs = rr_bspec.fine_spec
+    rsize = rbs.width * rbs.resolution
+    rboff = torch.stack([-(center[0] - 0.5 * rsize), -(center[1] - 0.5 * rsize)])
+    rr_chain_maps = raster.stamp_scan_batch(
+        rbs, ProbMap(torch.full((B, rbs.height, rbs.width), rbs.default_prob, **f32),
+                     rboff),
+        cp, cm, cpo, torch.ones((B, 10), dtype=torch.bool, device=dev))
+    corr_entries(rbs, rr_tiers, rr_chain_maps.probs, rboff, inits, pts[q], nvs[q],
+                 "rr_chain_b4", K2)
+    emit({"phase": "correlation_kernels", "timed": "CUDA events, 10 back-to-back "
+          "launches, median of 10 runs, in turns K1 K2 K2 K1, mean of the two",
+          "entries": both_kernels})
+    assert max(e["max_abs_k2_minus_k1"] for e in both_kernels) <= 1e-5
+    del rr_chain_maps
 
     # carve: 1152 beams on the 640² pub map
     ps = fspec.pub_spec
@@ -349,25 +518,36 @@ def main() -> int:
     edge["check_counts"] = got.tolist()
     fs = fspec.fine_spec
     far = torch.as_tensor([500.0, -400.0, 0.1], **f32)
-    for name, pose, n_valid in (("empty_scan", pose_q, 0), ("far_pose", far, nvs[q])):
-        center = world_to_map_pose(state.fine.offset, fs.inv_res, pose)
-        g = correlative.candidate_grid(fs, tiers["fine"], pts[q], n_valid, center)
-        args = (state.fine.probs[None], g.rx[None].contiguous(), g.ry[None].contiguous(),
-                g.svalid[None].contiguous(), g.xs[None].contiguous(),
-                g.ys[None].contiguous(), float(fs.default_prob),
-                torch.full((1,), g.divisor, **f32))
-        got = correlation.correlation_scores(*args)
-        want = correlative.correlation_scores_plain(*args)
-        assert float((got - want).abs().max()) <= 1e-5 and bool(torch.isfinite(got).all())
-        edge[f"score_{name}"] = float(got.mean())
-        # every valid sample falls outside the map: default_prob each
-        expect = fs.default_prob * int(g.svalid.sum()) / g.divisor
-        assert abs(edge[f"score_{name}"] - expect) < 1e-5, (name, expect)
-    assert edge["score_empty_scan"] == 0.0
+    # a pose near the map's low corner: part of every window falls off the
+    # low side (negative cell coordinates), part lies inside
+    low = torch.as_tensor([-15.3, -15.2, 0.4], **f32)
+    for k, tag in ((K1, "score"), (K2, "score_v2")):
+        for name, pose, n_valid in (("empty_scan", pose_q, 0),
+                                    ("far_pose", far, nvs[q]),
+                                    ("low_side", low, nvs[q])):
+            center = world_to_map_pose(state.fine.offset, fs.inv_res, pose)
+            g = correlative.candidate_grid(fs, tiers["coarse"], pts[q], n_valid, center)
+            args = (state.fine.probs[None], g.rx[None].contiguous(),
+                    g.ry[None].contiguous(), g.svalid[None].contiguous(),
+                    g.xs[None].contiguous(), g.ys[None].contiguous(),
+                    float(fs.default_prob), torch.full((1,), g.divisor, **f32))
+            got = k["fn"](*args)
+            want = correlative.correlation_scores_plain(*args)
+            assert float((got - want).abs().max()) <= 1e-5, (k["name"], name)
+            assert bool(torch.isfinite(got).all())
+            edge[f"{tag}_{name}"] = float(got.mean())
+            if name == "low_side":
+                cells_x = torch.floor(g.rx[..., None] + g.xs[None, None, :] + 0.5)
+                assert bool((cells_x < 0).any()) and bool((cells_x >= 0).any())
+                continue
+            # every valid sample falls outside the map: default_prob each
+            expect = fs.default_prob * int(g.svalid.sum()) / g.divisor
+            assert abs(edge[f"{tag}_{name}"] - expect) < 1e-5, (name, expect)
+        assert edge[f"{tag}_empty_scan"] == 0.0
     torch.cuda.synchronize()
     emit({"phase": "kernels_checked", "bad_counts_displaced": bad_displaced,
           "edge_cases": edge, "entries": len(entries)})
-    del state, chain_maps, cp, cm, cpo
+    del state, rr_state, chain_maps, cp, cm, cpo
     torch.cuda.empty_cache()
 
     # ---- phase 4: the main path at full width ----
@@ -378,10 +558,12 @@ def main() -> int:
     feed_times = [float(times[0]) + dt * k for k in range(len(order))]
 
     def reset_counts():
-        correlation.launches = raycarve.mark_launches = raycarve.check_launches = 0
+        correlation.launches = correlation.launches_v2 = 0
+        raycarve.mark_launches = raycarve.check_launches = 0
 
     def read_counts():
         return {"correlation_scores": correlation.launches,
+                "correlation_scores_v2": correlation.launches_v2,
                 "ray_mark_image": raycarve.mark_launches,
                 "bad_ray_count": raycarve.check_launches}
 
@@ -430,6 +612,7 @@ def main() -> int:
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
         assert kept >= 20, f"kept {kept} scans"
         assert eng.backend.num_links > 0 and eng.backend.num_solves >= 1
+        assert counts.pop("correlation_scores_v2") == 0, counts
         assert all(v > 0 for v in counts.values()), counts
         assert np.isfinite(traj).all() and traj.shape == (kept, 4)
         assert (pub_map == 100).any() and (pub_map == 0).any()
@@ -451,6 +634,8 @@ def main() -> int:
     assert all(v > 0 for v in chain_counts.values()), chain_counts
     del engine2
     for e in entries.values():
+        if e["name"].startswith("correlation_scores_v2"):
+            continue                # the second kernel's launches: leg 3 below
         front = not e["name"].startswith(("correlation_scores[chain", "bad_ray_count[b4"))
         if e["name"].startswith("correlation_scores"):
             # every match launches each of the three tiers once
@@ -519,6 +704,215 @@ def main() -> int:
           "max_ang_diff_rad": float(d[:, 3].max())})
     assert d[:, 1:3].max() <= POS_TOL and d[:, 3].max() <= ANG_TOL, d.max(0)
 
+    # ---- phase 6: the corridor-loop log, simulated from a seed ----
+    t0 = time.perf_counter()
+    loop_laser = LaserModel(angle_min=-np.deg2rad(135.0), angle_max=np.deg2rad(135.0),
+                            range_min=0.05, range_max=10.0, num_beams=1081,
+                            scan_time=0.025)
+    loop_traj = path_to_trajectory(corridor_loop_path(LOOP_LAPS), speed=1.0,
+                                   scan_rate=10.0)
+    loop_log = simulate_log(corridor_loop_map(GroundTruthMap), loop_laser,
+                            trajectory=loop_traj, odom_error=(0.03, 0.03, 0.05),
+                            range_noise=0.01, seed=LOOP_SEED)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    log_path = os.path.join(tmp.name, "corridor_loop.npz")
+    loop_log.save(log_path)
+
+    def head_log(n):
+        path = os.path.join(tmp.name, f"corridor_loop_{n}.npz")
+        ScanLog(loop_log.ranges[:n], loop_log.odom[:n], loop_log.times[:n],
+                loop_laser, loop_log.gt_poses[:n]).save(path)
+        return path
+
+    emit({"phase": "simulated_log", "scans": len(loop_log), "laps": LOOP_LAPS,
+          "path_m": float(np.linalg.norm(np.diff(loop_traj[:, :2], axis=0), axis=1).sum()),
+          "beams": loop_laser.num_beams, "seed": LOOP_SEED,
+          "odom_end_error_m": float(np.linalg.norm(
+              loop_log.odom[-1, :2] - (loop_log.gt_poses[-1, :2] - loop_log.gt_poses[0, :2]))),
+          "seconds": time.perf_counter() - t0})
+
+    def run_cli(argv, what):
+        """``python -m roborts_slam_tpu_torch`` with ``argv``, in-process.
+        Returns the engine it built and a report: kernel launch counts of the
+        run (set to 0 just before, read just after), those made inside chain
+        matches, and where the host's time went."""
+        seen = {"engine": None, "recenters": 0, "dedistorted": 0}
+        spent = {"dedistort_s": 0.0, "recenter_s": 0.0, "chain_match_s": 0.0,
+                 "solve_and_correct_s": 0.0}
+        chain = {"correlation_scores": 0, "correlation_scores_v2": 0, "bad_ray_count": 0}
+        opt_costs = []
+
+        def timed(key, sync=False, count=None):
+            def wrap(fn):
+                def inner(self, *a, **kw):
+                    t = time.perf_counter()
+                    out = fn(self, *a, **kw)
+                    if sync:
+                        torch.cuda.synchronize()
+                    spent[key] += time.perf_counter() - t
+                    if count:
+                        seen[count] += 1
+                    return out
+                return inner
+            return wrap
+
+        def chain_counted(fn):
+            def inner(self, *a, **kw):
+                before = read_counts()
+                t = time.perf_counter()
+                out = fn(self, *a, **kw)          # ends in its one host fetch
+                spent["chain_match_s"] += time.perf_counter() - t
+                for name in chain:
+                    chain[name] += read_counts()[name] - before[name]
+                return out
+            return inner
+
+        def engine_seen(fn):
+            def inner(self, *a, **kw):
+                seen["engine"] = self
+                return fn(self, *a, **kw)
+            return inner
+
+        def costs_kept(fn):
+            def inner(*a, **kw):
+                res = fn(*a, **kw)
+                if res.cost.dim() == 0:          # the front end's single match
+                    opt_costs.append(res.cost)
+                return res
+            return inner
+
+        said = io.StringIO()
+        with contextlib.ExitStack() as stack:
+            for owner, name, wrapper in (
+                    (SlamEngine, "run_log", engine_seen),
+                    (SlamEngine, "_dedistorted_points", timed("dedistort_s", count="dedistorted")),
+                    (SlamEngine, "_rebuild_match_maps_at",
+                     timed("recenter_s", sync=True, count="recenters")),
+                    (Backend, "_match_chain_batch_one", chain_counted),
+                    (Backend, "_solve_and_correct", timed("solve_and_correct_s", sync=True)),
+                    (matchers, "optimize_scan_match", costs_kept)):
+                stack.enter_context(patched(owner, name, wrapper))
+            stack.enter_context(contextlib.redirect_stdout(said))
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rc = cli_main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            counts = read_counts()
+        assert rc == 0, f"{what}: run returned {rc}"
+        eng = seen["engine"]
+        traj = eng.trajectory_array()
+        assert np.isfinite(traj).all() and traj.shape == (len(eng.store), 4)
+        est, gt = match_by_time(traj, loop_log.gt_poses, loop_log.times)
+        last = said.getvalue().strip().splitlines()[-2:]
+        report = {
+            "argv": [a if not a.startswith(tmp.name) else os.path.basename(a) for a in argv],
+            "scans_fed": eng.diag.scans_in, "kept": len(eng.store),
+            "dropped_by_move_gate": eng.diag.scans_dropped_move,
+            "dropped_by_score_gate": eng.diag.scans_dropped_gate,
+            "links": eng.backend.num_links,
+            "loop_closures": eng.backend.num_loop_closures,
+            "spa_solves": eng.backend.num_solves,
+            "chain_dispatches": eng.backend.num_chain_dispatches,
+            "recenters": seen["recenters"], "dedistorted_scans": seen["dedistorted"],
+            "ate_rmse_m": ate_rmse(est, gt), "cli_said": last,
+            "launches": counts, "launches_in_chain_matches": dict(chain),
+            "seconds": seconds, "ms_per_scan_fed": seconds / eng.diag.scans_in * 1e3,
+            "frontend_s": eng.diag.match_time_s, "backend_s": eng.diag.backend_time_s,
+            **spent,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if opt_costs:
+            failed = int((torch.stack(opt_costs)
+                          > eng.config.optimize_failed_cost).sum())
+            report["optimizer_pose_taken"] = len(opt_costs) - failed
+            report["fell_back_to_coarse_tier"] = failed
+        return eng, report
+
+    # ---- phase 7 (leg 3): the real-robot profile through ``run`` ----
+    with corr_kernel(2):
+        eng3, report3 = run_cli(
+            ["run", log_path, "--config", str(ROOT / "configs" / "real_robot.yaml")],
+            "leg 3")
+    emit({"phase": "main_path_real_robot", "corr_kernel": 2,
+          "fine_map": [eng3.fspec.fine_spec.height, eng3.fspec.fine_spec.width],
+          "chain_map": [eng3.bspec.fine_spec.height, eng3.bspec.fine_spec.width],
+          "pub_map": [eng3.fspec.pub_spec.height, eng3.fspec.pub_spec.width],
+          **report3})
+    assert eng3.config == rr_config and eng3.fspec.fine_spec == rr_fspec.fine_spec
+    c3, chain3 = report3["launches"], report3["launches_in_chain_matches"]
+    assert c3["correlation_scores"] == 0, "leg 3 launched the first kernel"
+    assert min(c3["correlation_scores_v2"], c3["ray_mark_image"], c3["bad_ray_count"]) > 0, c3
+    assert chain3["correlation_scores_v2"] > 0, "no chain match was proposed"
+    assert report3["recenters"] >= 3, report3["recenters"]
+    fed = report3["scans_fed"] - report3["dropped_by_move_gate"]
+    assert report3["dedistorted_scans"] == fed - 1, (report3["dedistorted_scans"], fed)
+    assert report3["loop_closures"] >= 1, "no loop was closed at the shipped link radius"
+    assert report3["ate_rmse_m"] < ATE_BAR_M, report3["ate_rmse_m"]
+    pub3 = eng3.get_pub_map()
+    assert (pub3 == 100).any() and (pub3 == 0).any()
+    for key, e in entries.items():
+        if not e["name"].startswith("correlation_scores_v2"):
+            continue
+        front = key.startswith("rr_front")
+        total = (c3["correlation_scores_v2"] - chain3["correlation_scores_v2"]
+                 if front else chain3["correlation_scores_v2"])
+        assert total % 3 == 0 and total > 0, (key, total)
+        e["launches"] = total // 3
+        e["launches_from"] = "main_path_real_robot"
+    del eng3, pub3
+
+    # ---- phase 8: second kernel's path against the first's, 60 scans ----
+    def replay_rr(version, n=60):
+        with corr_kernel(version):
+            reset_counts()
+            eng = SlamEngine(rr_config, loop_laser)
+            kept_ids = [i for i in range(n) if eng.process(
+                loop_log.ranges[i], loop_log.odom[i], float(loop_log.times[i]))]
+            return kept_ids, eng.trajectory_array(), read_counts()
+
+    ids_2, traj_2, counts_2 = replay_rr(2)
+    ids_1, traj_1, counts_1 = replay_rr(1)
+    assert counts_2["correlation_scores"] == 0 < counts_2["correlation_scores_v2"]
+    assert counts_1["correlation_scores_v2"] == 0 < counts_1["correlation_scores"]
+    assert ids_2 == ids_1, (ids_2, ids_1)
+    d = np.abs(traj_2 - traj_1)
+    d[:, 3] = np.abs(np.arctan2(np.sin(d[:, 3]), np.cos(d[:, 3])))
+    emit({"phase": "kernel_2_vs_kernel_1_path", "scans": 60, "kept": len(ids_2),
+          "max_pos_diff_m": float(d[:, 1:3].max()),
+          "max_ang_diff_rad": float(d[:, 3].max())})
+    assert d[:, 1:3].max() <= POS_TOL and d[:, 3].max() <= ANG_TOL, d.max(0)
+
+    # ---- phase 9 (leg 4): the default configuration through ``run`` ----
+    common = ["--max-points", "1152", "--world-size", "40"]
+    eng4, report4 = run_cli(["run", head_log(200), *common], "leg 4")
+    emit({"phase": "main_path_default_config",
+          "fine_map": [eng4.fspec.fine_spec.height, eng4.fspec.fine_spec.width],
+          "chain_map": [eng4.bspec.fine_spec.height, eng4.bspec.fine_spec.width],
+          **report4})
+    assert eng4.config.use_optimize_scan_match and eng4.config.match_map_window == 0
+    assert eng4.fspec.fine_spec.height == 4096, "not the full width"
+    assert report4["kept"] >= 150, report4["kept"]
+    assert report4["optimizer_pose_taken"] + report4["fell_back_to_coarse_tier"] \
+        == report4["scans_fed"]
+    assert report4["launches"]["correlation_scores"] > 0
+    del eng4
+    # each remaining matcher option once on the card, 40 scans each
+    for flag in ("use_fast_correlation_match", "use_running_range_scan_match"):
+        cfg_path = os.path.join(tmp.name, f"{flag}.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump({flag: True}, f)
+        eng_s, report_s = run_cli(["run", head_log(40), "--config", cfg_path, *common],
+                                  flag)
+        emit({"phase": f"short_leg_{flag}", **report_s})
+        assert getattr(eng_s.config, flag) and report_s["kept"] >= 30, report_s["kept"]
+        del eng_s
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    for e in entries.values():
+        assert e["launches"] > 0, f"{e['name']}: not launched on a main path"
     emit({"kernels": list(entries.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,10 +3,11 @@
 Same sub-packages and module names as the JAX package beside it, so a reader
 finds each counterpart (``engine.py``, ``frontend/processor.py``,
 ``ops/correlative.py``, ...). The port imports ``torch`` and ``numpy`` only;
-it shares no module with the JAX package. The three hot kernels (correlation
-scoring, ray carving, ray checking) are CUDA C++ for ``sm_90a`` under
-``ops/cuda/``, built at first use; on CPU tensors their plain PyTorch
-versions run instead.
+it shares no module with the JAX package. The four kernels (two versions of
+correlation scoring, ray carving, ray checking) are CUDA C++ for ``sm_90a``
+under ``ops/cuda/``, built at first use; on CPU tensors their plain PyTorch
+versions run instead. ``python -m roborts_slam_tpu_torch run log.npz`` is
+the command line.
 """
 
 from .config import SlamConfig, load_config

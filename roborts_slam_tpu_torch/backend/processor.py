@@ -89,16 +89,22 @@ def chain_match(spec: BackendSpec,
                            dtype=torch.float32, device=dev)
         return ProbMap(probs, off)
 
-    # only the fine maps are matched against (every correlative tier reads
-    # the fine map); the coarse chain maps fed the optimize matcher only
     fine = stamp_scan_batch(spec.fine_spec, recentered(spec.fine_spec),
                             chain_points, chain_masks, chain_poses,
                             chain_valid, use_blur=cfg.fine_map_use_blur)
+    # every correlative tier reads the fine map; only the optimize matcher
+    # reads the coarse chain maps, so they are built only for it
+    coarse = ProbMap(None, None)
+    if spec.matcher.use_optimize_scan_match:
+        coarse = stamp_scan_batch(
+            spec.coarse_spec, recentered(spec.coarse_spec), chain_points,
+            chain_masks, chain_poses, chain_valid,
+            use_blur=cfg.coarse_map_use_blur)
 
     out = scan_match(
         spec.matcher,
         spec.fine_spec, fine.probs, fine.offset,
-        spec.coarse_spec, None, None,
+        spec.coarse_spec, coarse.probs, coarse.offset,
         points, mask, n_valid, init_pose,
     )
 

@@ -7,11 +7,13 @@ front-end step, maintains the scan store (the reference's
 SensorDataManager), and drives the back end (pose graph + loop closure)
 synchronously after every kept scan.
 
-This slice carries the blocking per-scan loop only. The asynchronous
-back-end worker, the pipelined fetch, the fused front-end+chain step, the
-windowed (running-range) match, the rolling match-map window, odometry
-de-distortion, the pose stream and the map-snapshot hooks are not ported:
-asking for one raises ``NotImplementedError``.
+The port carries the blocking per-scan loop with every option of the two
+shipped profiles and of the default configuration: the windowed
+(running-range) match, the rolling match-map window and odometry
+de-distortion on ingest. The asynchronous back-end worker, the pipelined
+fetch and the fused front-end+chain step are not ported (asking for one
+raises ``NotImplementedError``); neither are the pose stream and the
+map-snapshot hooks.
 
 All device state lives on one explicit ``device``. ``device=None`` means
 the card and raises when there is none; nothing falls back to the CPU.
@@ -20,8 +22,10 @@ the card and raises when there is none; nothing falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time as _time
 import warnings
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -29,10 +33,12 @@ import torch
 from .config import SlamConfig
 from .backend.processor import Backend, BackendSpec
 from .frontend.processor import (
-    FrontendSpec, FrontendState, frontend_step, init_frontend_state,
+    FrontendSpec, FrontendState, frontend_step, frontend_step_windowed,
+    init_frontend_state,
 )
-from .models.scan import LaserModel, ranges_to_packed
-from .models.grid_map import CountMap, ProbMap, count_map_states
+from .io.dedistort import dedistort_scan
+from .models.scan import LaserModel, pack_points, ranges_to_packed
+from .models.grid_map import CountMap, count_map_states, make_prob_map
 from .ops.raster import rebuild_count_map, stamp_scan_batch
 
 
@@ -47,6 +53,23 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def _stamp_match_maps(coarse_spec, fine_spec, coarse_off, fine_off,
+                      pts, msk, poses, valid, coarse_blur: bool,
+                      fine_blur: bool):
+    """Fresh coarse+fine match maps stamped from a scan batch (the
+    correction rebuild and the rolling-window recenter)."""
+    def fresh(spec, off):
+        return make_prob_map(spec, off, pts.device)
+
+    if pts.shape[0] == 0:       # no scan in reach: both maps stay unknown
+        return fresh(coarse_spec, coarse_off), fresh(fine_spec, fine_off)
+    coarse = stamp_scan_batch(coarse_spec, fresh(coarse_spec, coarse_off),
+                              pts, msk, poses, valid, use_blur=coarse_blur)
+    fine = stamp_scan_batch(fine_spec, fresh(fine_spec, fine_off),
+                            pts, msk, poses, valid, use_blur=fine_blur)
+    return coarse, fine
+
+
 def _rebuild_all_maps(pub_spec, coarse_spec, fine_spec,
                       pub_off, coarse_off, fine_off,
                       pts, msk, poses, valid, free_f, occu_f,
@@ -54,18 +77,11 @@ def _rebuild_all_maps(pub_spec, coarse_spec, fine_spec,
                       fine_blur: bool):
     """The full CorrectPoseAndMap rebuild (pub + coarse + fine,
     slam_processor.cpp:350-366) from every stored scan."""
-    dev = pts.device
     pub = rebuild_count_map(pub_spec, pub_off, pts, msk, poses, valid,
                             free_f, occu_f, first_scan_extra=first_scan_extra)
-
-    def fresh(spec, off):
-        return ProbMap(torch.full((spec.height, spec.width), spec.default_prob,
-                                  dtype=torch.float32, device=dev), off)
-
-    coarse = stamp_scan_batch(coarse_spec, fresh(coarse_spec, coarse_off),
-                              pts, msk, poses, valid, use_blur=coarse_blur)
-    fine = stamp_scan_batch(fine_spec, fresh(fine_spec, fine_off),
-                            pts, msk, poses, valid, use_blur=fine_blur)
+    coarse, fine = _stamp_match_maps(coarse_spec, fine_spec, coarse_off,
+                                     fine_off, pts, msk, poses, valid,
+                                     coarse_blur, fine_blur)
     return pub, coarse, fine
 
 
@@ -78,7 +94,9 @@ class ScanStore:
 
     _DEV_CAP_START = 256
 
-    def __init__(self, max_points: int, device):
+    def __init__(self, max_points: int, device,
+                 running_range_max_scans: int = 70,
+                 running_range_max_distance: float = 5.0):
         self.max_points = max_points
         self.device = torch.device(device)
         self._points: list[np.ndarray] = []
@@ -97,6 +115,12 @@ class ScanStore:
         # pose corrections
         self._bary = np.zeros((256, 3), np.float64)
         self._bary_dirty_from = 0
+        # running-range sliding window (UpdateRunningRange,
+        # sensor_data_manager.h:540-558): most recent scan ids bounded by
+        # count and by span of their sensor x/y positions
+        self.running_range_max_scans = running_range_max_scans
+        self.running_range_max_distance = running_range_max_distance
+        self.running_ids: list[int] = []
         # device mirror
         self._dev_points = None
         self._dev_masks = None
@@ -137,7 +161,24 @@ class ScanStore:
             grown = np.zeros((2 * self._bary.shape[0], 3), np.float64)
             grown[:self._bary.shape[0]] = self._bary
             self._bary = grown
+        self._update_running_range(sid)
         return sid
+
+    def _update_running_range(self, scan_id: int):
+        """Sliding window over recent scans (UpdateRunningRange,
+        sensor_data_manager.h:540-558): cap the id count, then shrink from
+        the front while the window's sensor-position span exceeds the
+        distance bound."""
+        self.running_ids.append(scan_id)
+        while len(self.running_ids) > self.running_range_max_scans:
+            self.running_ids.pop(0)
+
+        def span_exceeds():
+            ps = np.asarray([self.poses[i][:2] for i in self.running_ids])
+            return (ps.max(0) - ps.min(0)).max() > self.running_range_max_distance
+
+        while len(self.running_ids) > 1 and span_exceeds():
+            self.running_ids.pop(0)
 
     def set_pose(self, scan_id: int, pose: np.ndarray):
         self.poses[scan_id] = np.asarray(pose, np.float64).copy()
@@ -228,6 +269,22 @@ class ScanStore:
         self._dev_poses_stale = False
         return self._dev_points, self._dev_masks, self._dev_poses
 
+    def gather(self, ids):
+        """Device tensors ``(points (n,P,2), masks (n,P), poses (n,3), valid
+        (n,))`` of the scans ``ids``, gathered on the device from the mirror
+        by one id vector (no padding: exactly the ids asked for)."""
+        pts, msk, poses = self.device_arrays()
+        idx = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        valid = torch.ones((len(idx),), dtype=torch.bool, device=self.device)
+        return pts[idx], msk[idx], poses[idx], valid
+
+    def running_range_arrays(self):
+        """Device tensors of the running-range window scans, the input the
+        windowed front-end step takes. The reference defines the
+        windowed-match path but ships it disabled (kUseRunningRangeScanMatch
+        = false, slam_processor.h:265)."""
+        return self.gather(self.running_ids)
+
     def all_arrays(self):
         """Every stored scan as device tensors ``(points (n,P,2), masks
         (n,P), poses (n,3), valid (n,))`` — views of the device mirror."""
@@ -263,16 +320,11 @@ class SlamEngine:
                 not synchronous_backend,
             "fused_backend (fused front-end+chain step)": fused_backend,
             "pipelined_fetch": pipelined_fetch,
-            "use_running_range_scan_match (windowed match)":
-                config.use_running_range_scan_match,
-            "use_odom_correct (sweep de-distortion)": config.use_odom_correct,
-            "match_map_window > 0 (rolling match-map window)":
-                config.match_map_window > 0,
         }
         for what, asked in unsupported.items():
             if asked:
                 raise NotImplementedError(
-                    f"{what} is not ported yet: this slice carries the "
+                    f"{what} is not ported yet: the port carries the "
                     f"blocking per-scan loop only")
         self.device = resolve_device(device)
         self.config = config
@@ -288,11 +340,15 @@ class SlamEngine:
         # host mirror of the tiny, rarely-changing bits of device state
         # (current pose + map offsets): the per-scan geometry checks read
         # these instead of fetching. Updated from the one per-scan summary
-        # fetch, on growth and on corrections.
+        # fetch, on growth/recenter and on corrections.
         self._host_pose = np.zeros(3)
         self._host_fine_off = self.state.fine.offset.cpu().numpy().astype(np.float64)
+        self._host_coarse_off = self.state.coarse.offset.cpu().numpy().astype(np.float64)
         self._host_pub_off = self.state.pub.offset.cpu().numpy().astype(np.float64)
-        self.store = ScanStore(config.max_points, self.device)
+        self.store = ScanStore(
+            config.max_points, self.device,
+            running_range_max_scans=config.running_range_size,
+            running_range_max_distance=config.running_range_max_distance)
         self.backend = Backend(self.bspec, self.store)
         self.backend.on_corrections = self._apply_corrections
         self.synchronous_backend = True
@@ -301,6 +357,7 @@ class SlamEngine:
         self.trajectory: list[tuple[float, np.ndarray]] = []  # (t, pose) per kept scan
         self._last_kept_odom: np.ndarray | None = None
         self._last_process_time: float | None = None
+        self._odom_history: list[tuple[float, np.ndarray]] = []
         self._pending_backend: list[tuple] = []   # (scan_id, cov)
 
     # ---- gates (MoveEnough, slam_processor.cpp:604-616) ----
@@ -333,14 +390,37 @@ class SlamEngine:
 
     def process(self, ranges: np.ndarray, odom: np.ndarray, t: float) -> bool:
         """Feed one scan (raw ranges); returns True if accepted."""
+        self._odom_history.append((t, np.asarray(odom, np.float64).copy()))
+        if len(self._odom_history) > 64:
+            self._odom_history.pop(0)
         # move gate BEFORE any conversion work — rejected scans must cost
         # nothing on the ingest path (MoveEnough runs first in the
         # reference too, slam_processor.cpp:92)
         if not self._pass_move_gate(odom, t):
             return False
-        points, mask, n_valid = ranges_to_packed(
-            ranges, self.laser, self.config.max_points)
+        if (self.config.use_odom_correct and self.laser.scan_time > 0
+                and len(self._odom_history) >= 2):
+            points, mask, n_valid = self._dedistorted_points(ranges, t)
+        else:
+            points, mask, n_valid = ranges_to_packed(
+                ranges, self.laser, self.config.max_points)
         return self._process_gated(points, mask, n_valid, odom, t)
+
+    def _dedistorted_points(self, ranges: np.ndarray, t: float):
+        """Odometry-based sweep de-distortion (LaserDataProcessor,
+        laser_data_processor.cpp:43-314) on the ingest path: re-project each
+        beam into the sweep-END frame (scans are stamped, and odometry
+        paired, at time ``t`` = end of sweep), then gate and front-pack like
+        ``ranges_to_packed``."""
+        ranges = np.asarray(ranges, np.float32)
+        # the reference also drops beams beyond range_threshold
+        # (roborts_slam_node.cpp:295-307); mark them invalid pre-correction
+        gated = np.where(ranges < self.laser.range_threshold, ranges, 0.0)
+        ot = np.array([h[0] for h in self._odom_history])
+        op = np.stack([h[1] for h in self._odom_history])
+        pts = dedistort_scan(gated, self.laser, t - self.laser.scan_time,
+                             self.laser.scan_time, ot, op, reference="end")
+        return pack_points(pts[~np.isnan(pts[:, 0])], self.config.max_points)
 
     def process_points(self, points, mask, n_valid: int, odom: np.ndarray,
                        t: float) -> bool:
@@ -372,11 +452,18 @@ class SlamEngine:
         self._maybe_grow_pub(self._predict_pose_host(odom), np_points, np_mask)
         dev = self.device
         t0 = _time.perf_counter()
-        self.state, info = frontend_step(
-            self.fspec, self.state,
-            torch.as_tensor(np_points, device=dev),
-            torch.as_tensor(np_mask, device=dev), int(n_valid),
-            torch.as_tensor(odom, dtype=torch.float32, device=dev))
+        scan = (torch.as_tensor(np_points, device=dev),
+                torch.as_tensor(np_mask, device=dev), int(n_valid),
+                torch.as_tensor(odom, dtype=torch.float32, device=dev))
+        if self.config.use_running_range_scan_match and len(self.store) > 0:
+            # windowed match path (slam_processor.cpp:134-159): the
+            # running-range window scans are the match map source, gathered
+            # on the device from the store mirror by id
+            self.state, info = frontend_step_windowed(
+                self.fspec, self.state, *self.store.running_range_arrays(),
+                *scan)
+        else:
+            self.state, info = frontend_step(self.fspec, self.state, *scan)
         # the step fetched ONE packed summary — pose + cov + gates
         s = info.summary
         accepted = bool(s[12] > 0.5)
@@ -393,7 +480,10 @@ class SlamEngine:
             return False
 
         self.diag.scans_processed += 1
-        self._check_world_bounds(pose)
+        if self.config.match_map_window > 0:
+            self._maybe_recenter(pose)
+        else:
+            self._check_world_bounds(pose)
         self._last_kept_odom = odom.copy()
         scan_id = self.store.add(np_points, np_mask, n_valid, pose, odom, t)
         self.trajectory.append((t, pose))
@@ -574,6 +664,62 @@ class SlamEngine:
             hits, passes,
             torch.as_tensor(new_off, dtype=torch.float32, device=self.device))
         self._publish_pub_arrays()
+
+    # ---- rolling match-map window (config.match_map_window) ----
+
+    def _shift_granule(self) -> float:
+        """Smallest shift (m) that is an integer cell count in BOTH
+        scan-match maps, so one world-space recenter keeps both lattices.
+        lcm(a/b, c/d) = lcm(a·d, c·b) / (b·d)."""
+        f = Fraction(str(self.config.fine_map_resolution))
+        c = Fraction(str(self.config.coarse_map_resolution))
+        num = math.lcm(f.numerator * c.denominator, c.numerator * f.denominator)
+        return num / (f.denominator * c.denominator)
+
+    def _maybe_recenter(self, pose: np.ndarray):
+        """Rolling-window scan-match maps: when the pose drifts beyond a
+        quarter window from the window center, re-center the fine+coarse
+        maps on it. Newly covered area is NOT left unknown: the maps are
+        rebuilt from every stored scan whose beams can reach the new window,
+        so revisiting a long-left region matches against real content
+        exactly like the reference's ever-growing maps
+        (grid_map_base.h:188-274). The pub map keeps the global extent (it
+        is the published product)."""
+        fs = self.fspec.fine_spec
+        extent = np.array([fs.width, fs.height]) * fs.resolution
+        center_w = extent * 0.5 - self._host_fine_off
+        delta = np.asarray(pose[:2]) - center_w
+        window = min(float(extent[0]), float(extent[1]))
+        if np.max(np.abs(delta)) <= 0.25 * window:
+            return
+        g = self._shift_granule()
+        shift_m = np.round(delta / g) * g                    # (dx, dy) meters
+        self._rebuild_match_maps_at(self._host_fine_off - shift_m,
+                                    self._host_coarse_off - shift_m)
+
+    def _rebuild_match_maps_at(self, fine_off: np.ndarray,
+                               coarse_off: np.ndarray):
+        """Fresh fine+coarse match maps at the given offsets, stamped from
+        the stored scans within beam reach of the new window — exactly those
+        (the JAX package pads the batch to size buckets only to bound
+        recompilation). Keeps the host mirrors of both offsets in step."""
+        cfg = self.config
+        fs, cs = self.fspec.fine_spec, self.fspec.coarse_spec
+        self._host_fine_off = np.asarray(fine_off, np.float64)
+        self._host_coarse_off = np.asarray(coarse_off, np.float64)
+        extent = np.array([fs.width, fs.height]) * fs.resolution
+        center_new = extent * 0.5 - fine_off
+        reach = 0.5 * float(extent.max()) + self.laser.range_threshold
+        poses = self.store.poses_array()
+        ids = []
+        if len(poses):
+            d = np.abs(poses[:, :2] - center_new[None]).max(1)
+            ids = np.flatnonzero(d <= reach)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self.state.coarse, self.state.fine = _stamp_match_maps(
+            cs, fs, torch.as_tensor(coarse_off, **f32),
+            torch.as_tensor(fine_off, **f32), *self.store.gather(ids),
+            bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
 
     def finish(self):
         """Flush pending back-end work. NOT terminal: further process()

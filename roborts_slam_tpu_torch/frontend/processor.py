@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``frontend/processor.py``
 (``SlamProcessor::process``, src/slam/slam_processor.cpp:65-247): predict →
-3-tier match → map-consistency penalty → accept gate → map updates.
+tiered match → map-consistency penalty → accept gate → map updates.
 
 Differences from the JAX step, which is one jitted pure function whose
 whole-map ``where(gate, new, old)`` selections are fused away and whose
@@ -27,10 +27,10 @@ import torch
 
 from ..config import SlamConfig
 from ..models.grid_map import (
-    CountMap, CountMapSpec, ProbMap, ProbMapSpec, make_count_map,
-    make_prob_map, pub_map_spec, scan_match_map_specs,
+    CountMap, CountMapSpec, ProbMap, ProbMapSpec, backend_map_specs,
+    make_count_map, make_prob_map, pub_map_spec, scan_match_map_specs,
 )
-from ..ops.raster import stamp_scan, update_count_map
+from ..ops.raster import stamp_scan, stamp_scan_batch, update_count_map
 from ..ops.raycast import map_feedback_penalty
 from ..utils.geometry import pose_change_enough, predict_pose_by_odom
 from .matchers import MatcherParams, scan_match
@@ -43,6 +43,10 @@ class FrontendSpec:
     coarse_spec: ProbMapSpec
     fine_spec: ProbMapSpec
     matcher: MatcherParams
+    # windowed-match map specs (use_running_range_scan_match): sized like the
+    # back-end chain maps, rebuilt from the running window around each scan
+    window_coarse_spec: ProbMapSpec | None = None
+    window_fine_spec: ProbMapSpec | None = None
 
     @staticmethod
     def from_config(config: SlamConfig, laser_range_max: float,
@@ -51,12 +55,17 @@ class FrontendSpec:
             world_size = config.derived_world_size(laser_range_max)
         coarse, fine = scan_match_map_specs(
             config, world_size, coverage_m=laser_range_max + 2.0)
+        wcoarse = wfine = None
+        if config.use_running_range_scan_match:
+            wcoarse, wfine = backend_map_specs(config, laser_range_max)
         return FrontendSpec(
             config=config,
             pub_spec=pub_map_spec(config, laser_range_max, world_size),
             coarse_spec=coarse,
             fine_spec=fine,
             matcher=MatcherParams.from_config(config),
+            window_coarse_spec=wcoarse,
+            window_fine_spec=wfine,
         )
 
     def world_size(self) -> float:
@@ -130,22 +139,72 @@ def frontend_step(spec: FrontendSpec, state: FrontendState,
     """One scan through the front end (slam_processor.cpp:65-247), matching
     against the accumulated scan-match maps. Mutates ``state`` (maps in
     place, scalars replaced) and returns it with the step's ``StepInfo``."""
+    return _frontend_core(
+        spec, state,
+        spec.fine_spec, state.fine, spec.coarse_spec, state.coarse,
+        points, mask, n_valid, cur_odom)
+
+
+def _predict(spec: FrontendSpec, state: FrontendState, cur_odom):
+    """Odometry prediction of this scan's pose (slam_processor.cpp:122-126)."""
+    if not spec.config.use_odometry:
+        return state.pose
+    # first scan: no kept odom yet -> zero delta
+    last_odom = torch.where(state.scan_index == 0, cur_odom,
+                            state.last_kept_odom)
+    return predict_pose_by_odom(state.pose, last_odom, cur_odom)
+
+
+def frontend_step_windowed(spec: FrontendSpec, state: FrontendState,
+                           win_points, win_masks, win_poses, win_valid,
+                           points, mask, n_valid: int, cur_odom
+                           ) -> tuple[FrontendState, StepInfo]:
+    """Windowed variant (use_running_range_scan_match): the match maps are
+    rebuilt from the running-range window scans ``win_* (W, ...)``,
+    recentered on the odometry prediction — the reference's disabled
+    windowed path (slam_processor.cpp:134-159) built the same maps via
+    ResetScanMatchMapWithRangeVec (:448-462). The persistent maps are still
+    updated normally afterwards (UpdateMap runs on all maps either way). The
+    coarse window map is read by the optimize matcher only and is built only
+    for it."""
+    cfg = spec.config
+    predict = _predict(spec, state, cur_odom)
+
+    def window_map(pspec: ProbMapSpec, use_blur: bool) -> ProbMap:
+        size_x = pspec.width * pspec.resolution
+        size_y = pspec.height * pspec.resolution
+        off = torch.stack([-(predict[0] - 0.5 * size_x),
+                           -(predict[1] - 0.5 * size_y)])
+        return stamp_scan_batch(pspec, make_prob_map(pspec, off, off.device),
+                                win_points, win_masks, win_poses, win_valid,
+                                use_blur=use_blur)
+
+    wfine = window_map(spec.window_fine_spec, cfg.fine_map_use_blur)
+    wcoarse = ProbMap(None, None)
+    if spec.matcher.use_optimize_scan_match:
+        wcoarse = window_map(spec.window_coarse_spec, cfg.coarse_map_use_blur)
+    return _frontend_core(
+        spec, state,
+        spec.window_fine_spec, wfine, spec.window_coarse_spec, wcoarse,
+        points, mask, n_valid, cur_odom)
+
+
+def _frontend_core(spec: FrontendSpec, state: FrontendState,
+                   match_fine_spec: ProbMapSpec, match_fine: ProbMap,
+                   match_coarse_spec: ProbMapSpec, match_coarse: ProbMap,
+                   points, mask, n_valid: int, cur_odom
+                   ) -> tuple[FrontendState, StepInfo]:
+    """Shared front-end step: predict → match (against the given maps) →
+    penalty → gates → persistent map updates."""
     cfg = spec.config
     is_first = state.scan_index == 0
-
-    # --- predict (slam_processor.cpp:122-126) ---
-    if cfg.use_odometry:
-        # first scan: no kept odom yet -> zero delta
-        last_odom = torch.where(is_first, cur_odom, state.last_kept_odom)
-        predict = predict_pose_by_odom(state.pose, last_odom, cur_odom)
-    else:
-        predict = state.pose
+    predict = _predict(spec, state, cur_odom)
 
     # --- scan match (:133-149) ---
     out = scan_match(
         spec.matcher,
-        spec.fine_spec, state.fine.probs, state.fine.offset,
-        spec.coarse_spec, state.coarse.probs, state.coarse.offset,
+        match_fine_spec, match_fine.probs, match_fine.offset,
+        match_coarse_spec, match_coarse.probs, match_coarse.offset,
         points, mask, n_valid, predict,
     )
 

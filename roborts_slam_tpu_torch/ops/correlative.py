@@ -6,8 +6,9 @@ serial Olson-style triple loop, correlate_scan_matcher.h:505-1036). All
 
   1. rotate the subsampled scan points for every search angle;
   2. sum the map probability under every (angle, sample, x, y) candidate
-     cell — on the card this is the hand-written CUDA kernel
-     (``ops/cuda/correlation.cu``), on CPU tensors the gather below;
+     cell — on the card this is one of the two hand-written CUDA kernels
+     (``ops/cuda/correlation.cu``, ``correlation_v2.cu``), on CPU tensors
+     the gather below;
   3. center penalty, tie-averaged best pose, and positional/angular
      covariance as vectorized postprocessing.
 
@@ -357,12 +358,13 @@ def correlative_scan_match(spec: ProbMapSpec, params: CorrelativeParams,
     Scores come through the kernel wrapper: the CUDA kernel on the card, the
     plain version for CPU tensors."""
     center = world_to_map_pose(offset, spec.inv_res, pose_world)
-    # the kernel wrapper: CUDA kernel on the card, plain version on the CPU
-    from .cuda.correlation import correlation_scores
+    # the kernel wrapper ROBORTS_CORR_KERNEL selects: its CUDA kernel on the
+    # card, the plain version on the CPU
+    from .cuda.correlation import scores_fn
 
     scores, angles, xs, ys = score_candidates(
         spec, params, probs, offset, points, mask, n_valid, center,
-        scores_fn=correlation_scores)
+        scores_fn=scores_fn())
     scores = penalize_scores(params, spec, scores, angles, xs, ys, center)
     best_pose_map, best_score = find_best_candidate(scores, angles, xs, ys)
 

@@ -184,11 +184,41 @@ def test_scan_match_tiers_match_jax(replay):
 
 
 @pytest.mark.parametrize("flag", ["use_optimize_scan_match", "use_fast_correlation_match"])
-def test_unported_matchers_raise(flag):
-    params = tm.MatcherParams.from_config(T.load_config(SIM_YAML, **{flag: True}))
-    with pytest.raises(NotImplementedError):
-        tm.scan_match(params, None, torch.zeros(4, 4), None, None, None, None,
-                      None, None, 0, None)
+def test_unported_matchers_raise(flag, replay):
+    """These two matchers raised ``NotImplementedError`` while they were not
+    ported. Now they are: with either flag set, ``scan_match`` on the
+    replay's last state runs and agrees with the JAX package (the name of
+    the test is kept from that time)."""
+    jspec, tspec, jstate, tstate, _, scans = replay
+    over = dict(OVER, **{flag: True})
+    if flag == "use_fast_correlation_match":
+        # an integer candidate step on the 0.02 m map, and a small beam
+        over.update(fast_match_space_resolution=0.02, fast_match_space_size=0.64,
+                    fast_match_angle_offset=0.0698, fast_match_angle_resolution=0.0349,
+                    fast_match_max_depth=3, fast_match_beam_width=64)
+    jparams = jm.MatcherParams.from_config(J.load_config(SIM_YAML, **over))
+    tparams = tm.MatcherParams.from_config(T.load_config(SIM_YAML, **over))
+    pts, msk, nv, odom = scans[-1]
+    init = np.asarray(jstate.pose) + np.array([0.04, -0.03, 0.02], np.float32)
+    want = jm.scan_match(jparams, jspec.fine_spec, jstate.fine.probs,
+                         jstate.fine.offset, jspec.coarse_spec, jstate.coarse.probs,
+                         jstate.coarse.offset, jnp.asarray(pts), jnp.asarray(msk),
+                         jnp.int32(nv), jnp.asarray(init))
+    t = lambda a: torch.as_tensor(np.array(a))
+    got = tm.scan_match(tparams, tspec.fine_spec, t(jstate.fine.probs),
+                        t(jstate.fine.offset), tspec.coarse_spec,
+                        t(jstate.coarse.probs), t(jstate.coarse.offset),
+                        torch.as_tensor(pts), torch.as_tensor(msk), nv,
+                        torch.as_tensor(init))
+    # the fine and super-fine tiers start from the first stage's pose, which
+    # carries the optimizer's f32 rounding (2e-4 m, see
+    # test_torch_gauss_newton.py): they snap it back onto their candidate
+    # lattices, so the final pose agrees as in test_scan_match_tiers_match_jax
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), atol=2e-5)
+    assert abs(float(got.score) - float(want.score)) <= 1e-4
+    np.testing.assert_allclose(got.cov.numpy()[:2, :2], np.asarray(want.cov)[:2, :2],
+                               rtol=2e-3, atol=1e-9)
+    _same_magnitude(got.cov[2, 2], want.cov[2, 2])
 
 
 def test_chain_match_matches_jax(replay):
@@ -229,3 +259,126 @@ def test_chain_match_matches_jax(replay):
     for b in range(2):
         _same_magnitude(got[2][b, 2, 2], want[2][b, 2, 2])  # see the replay test
     assert got[0].shape == (2, 3) and got[2].shape == (2, 3, 3)
+
+
+# ---- the optimize-first branch, on the box scan of tests/test_matchers.py ----
+
+OPT_CONFIG = dict(
+    fine_map_resolution=0.02, coarse_map_resolution=0.08,
+    coarse_map_deviation=0.24, fine_map_deviation=0.05,
+    gaussian_blur_offset=0.88, use_optimize_scan_match=True,
+    optimize_failed_cost=200.0, iterate_times=10,
+    cost_decrease_threshold=0.1, cost_min_threshold=0.5,
+    coarse_search_space_size=0.6, coarse_search_space_resolution=0.05,
+    coarse_search_angle_offset=0.523, coarse_search_angle_resolution=0.0349,
+    fine_search_space_size=0.2, fine_search_space_resolution=0.02,
+    fine_search_angle_offset=0.175, fine_search_angle_resolution=0.0349,
+    super_fine_search_space_size=0.02, super_fine_search_space_resolution=0.01,
+    super_fine_search_angle_offset=0.0349,
+    super_fine_search_angle_resolution=0.00349,
+)
+
+
+@pytest.fixture(scope="module")
+def box_maps():
+    """Fine (1024², 0.02 m) and coarse (128², 0.08 m) maps stamped with the
+    box scan by the JAX package, as tests/test_matchers.py::_build_maps."""
+    import roborts_slam_tpu.models.grid_map as jgm
+    import roborts_slam_tpu.ops.raster as jraster
+    import roborts_slam_tpu_torch.models.grid_map as tgm
+
+    n, max_points = 160, 192
+    th = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    pts = np.stack([3.0 * np.sign(np.cos(th)) * np.abs(np.cos(th)) ** 0.15,
+                    2.0 * np.sign(np.sin(th)) * np.abs(np.sin(th)) ** 0.15], -1)
+    points = np.zeros((max_points, 2), np.float32)
+    points[:n] = pts
+    mask = np.zeros(max_points, bool)
+    mask[:n] = True
+    fkw = dict(resolution=0.02, height=1024, width=1024, deviation=0.05,
+               blur_offset=0.88)
+    ckw = dict(resolution=0.08, height=128, width=128, deviation=0.24,
+               blur_offset=0.88)
+    off = np.array([5.12, 5.12], np.float32)
+    stamped = {}
+    for name, kw in (("fine", fkw), ("coarse", ckw)):
+        spec = jgm.ProbMapSpec(**kw)
+        m = jraster.stamp_scan(spec, jgm.make_prob_map(spec, offset=off),
+                               jnp.asarray(points), jnp.asarray(mask), jnp.zeros(3))
+        stamped[name] = (spec, tgm.ProbMapSpec(**kw), np.array(m.probs))
+    return stamped, off, points, mask, n
+
+
+@pytest.mark.parametrize("case,over,use_fine", [
+    ("succeeds", {}, True),
+    # a bar no cost can meet: the optimizer's result is discarded and the
+    # coarse correlative tier runs from the initial pose
+    ("fails", dict(optimize_failed_cost=1e-3), True),
+    # the reference's quirk: without the fine passes the coarse block runs
+    # unconditionally, discarding even a successful optimizer result
+    ("no_fine_pass", {}, False),
+])
+def test_scan_match_with_optimizer_matches_jax(box_maps, case, over, use_fine):
+    stamped, off, points, mask, n = box_maps
+    jf, tf, fine = stamped["fine"]
+    jc, tc_, coarse = stamped["coarse"]
+    cfg = dict(OPT_CONFIG, **over)
+    init = np.array([0.1, -0.05, 0.05], np.float32)
+    want = jm.scan_match(jm.MatcherParams.from_config(J.SlamConfig(**cfg)),
+                         jf, jnp.asarray(fine), jnp.asarray(off), jc,
+                         jnp.asarray(coarse), jnp.asarray(off), jnp.asarray(points),
+                         jnp.asarray(mask), jnp.int32(n), jnp.asarray(init),
+                         use_fine_scan_match=use_fine)
+    tparams = tm.MatcherParams.from_config(T.SlamConfig(**cfg))
+    targs = (tf, torch.as_tensor(fine), torch.as_tensor(off), tc_,
+             torch.as_tensor(coarse), torch.as_tensor(off), torch.as_tensor(points),
+             torch.as_tensor(mask), n)
+    got = tm.scan_match(tparams, *targs, torch.as_tensor(init),
+                        use_fine_scan_match=use_fine)
+    # tier scores: each is a mean of <= 200 map values (1e-5); the optimizer's
+    # stage score 1/(1 + cost/failed_cost) carries its cost's 1e-3 relative
+    assert abs(float(got.score) - float(want.score)) <= 1e-4
+    # pose: tie-averaged lattice candidates, f32 rounding
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), atol=2e-5)
+    np.testing.assert_allclose(got.cov.numpy()[:2, :2], np.asarray(want.cov)[:2, :2],
+                               rtol=2e-3, atol=1e-9)
+    _same_magnitude(got.cov[2, 2], want.cov[2, 2])
+    assert np.abs(got.pose.numpy()).max() < 0.04          # test_matchers.py:111
+    if case == "succeeds":
+        # the first stage really was the optimizer's: its pose differs from
+        # what the run with the optimizer's result discarded gives
+        assert float(got.score) != pytest.approx(
+            float(tm.scan_match(
+                tm.MatcherParams.from_config(T.SlamConfig(
+                    **dict(cfg, optimize_failed_cost=1e-3))),
+                *targs, torch.as_tensor(init)).score), abs=1e-6)
+
+
+def test_scan_match_batch_selects_per_element(box_maps):
+    """Two chains in one call: from the near start the optimizer's cost ends
+    below the bar (its pose is taken), from the far start above it (the
+    coarse tier's pose is taken). Each element equals its own single call."""
+    stamped, off, points, mask, n = box_maps
+    _, tf, fine = stamped["fine"]
+    _, tc_, coarse = stamped["coarse"]
+    tparams = tm.MatcherParams.from_config(T.SlamConfig(**dict(
+        OPT_CONFIG, optimize_failed_cost=10.0)))
+    inits = np.array([[0.1, -0.05, 0.05], [0.45, 0.4, 0.3]], np.float32)
+    pts, msk = torch.as_tensor(points), torch.as_tensor(mask)
+    fine_b = torch.as_tensor(np.stack([fine, fine]))
+    coarse_b = torch.as_tensor(np.stack([coarse, coarse]))
+    o = torch.as_tensor(off)
+    batch = tm.scan_match(tparams, tf, fine_b, o, tc_, coarse_b, o, pts, msk, n,
+                          torch.as_tensor(inits))
+    assert batch.pose.shape == (2, 3) and batch.cov.shape == (2, 3, 3)
+    costs = []
+    for i in range(2):
+        one = tm.scan_match(tparams, tf, fine_b[i], o, tc_, coarse_b[i], o, pts,
+                            msk, n, torch.as_tensor(inits[i]))
+        np.testing.assert_allclose(batch.pose[i].numpy(), one.pose.numpy(), atol=2e-5)
+        assert abs(float(batch.score[i]) - float(one.score)) <= 1e-5
+        costs.append(float(tm.optimize_scan_match(
+            tc_, tparams.optimize, coarse_b[i], o, pts, msk,
+            torch.as_tensor(inits[i])).cost))
+    # the two elements took different sides of the select
+    assert costs[0] < 10.0 < costs[1], costs
