@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--profile [DIR]]
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, drives the port's main paths
-at full width and shows that each launched its kernels:
+against its plain PyTorch version on the card at the shapes of every main
+path, drives the port's main paths at full width and shows that each launched
+its kernels, at compared shapes only (the wrappers count launches by shape):
 
 - legs 1-2: the blocking per-scan SLAM loop under ``configs/simulation.yaml``
   (1152 points, 30 m world: a 3072² fine map, 2432² back-end chain maps) on
@@ -21,14 +22,17 @@ at full width and shows that each launched its kernels:
   40-scan legs with the branch-and-bound coarse stage and with the windowed
   (running-range) match.
 
-Each phase prints one JSON line; any failed phase raises and the process
-exits non-zero. It needs one CUDA device and never falls back to the CPU.
+Under each of the three configurations the first scans are also replayed on
+the card and through the plain versions on the CPU, and must agree. Each
+phase prints one JSON line; any failed phase raises and the process exits
+non-zero. It needs one CUDA device and never falls back to the CPU.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -170,14 +174,15 @@ def corr_kernel(version: int):
             os.environ["ROBORTS_CORR_KERNEL"] = before
 
 
-def profile_frontend(SlamEngine, config, laser, ranges, odom, times, out_dir, n=30):
+def profile_frontend(SlamEngine, config, laser, ranges, odom, times, world_size,
+                     out_dir, tag, n=30):
     """Optional (``--profile [DIR]``): trace the per-scan loop over the first
     scans with torch.profiler, print the device-busy share and the heaviest
-    device kernels, and write the table to ``DIR/profile.txt`` (default
+    device kernels, and write the table to ``DIR/profile_<tag>.txt`` (default
     ``out/``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine = SlamEngine(config, laser, world_size=30.0)
+    engine = SlamEngine(config, laser, world_size=world_size)
     for i in range(5):
         engine.process(ranges[i], odom[i], float(times[i]))
     torch.cuda.synchronize()
@@ -197,11 +202,11 @@ def profile_frontend(SlamEngine, config, laser, ranges, odom, times, out_dir, n=
     busy_s = sum(dev_time(e) for e in kernels) * 1e-6
     out = ROOT / out_dir
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile.txt").write_text(avg.table(sort_by="self_cuda_time_total",
-                                               row_limit=60, max_name_column_width=80))
+    (out / f"profile_{tag}.txt").write_text(avg.table(
+        sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=80))
     # the profiler slows the host side several times over, so the share is
     # also given against the unprofiled per-scan wall time of the same scans
-    engine2 = SlamEngine(config, laser, world_size=30.0)
+    engine2 = SlamEngine(config, laser, world_size=world_size)
     for i in range(5):
         engine2.process(ranges[i], odom[i], float(times[i]))
     torch.cuda.synchronize()
@@ -210,11 +215,13 @@ def profile_frontend(SlamEngine, config, laser, ranges, odom, times, out_dir, n=
         engine2.process(ranges[i], odom[i], float(times[i]))
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    emit({"phase": "profile", "scans": n - 5, "profiled_wall_seconds": wall,
+    emit({"phase": "profile", "configuration": tag, "scans": n - 5,
+          "profiled_wall_seconds": wall,
           "unprofiled_wall_seconds": plain_wall,
           "device_busy_seconds": busy_s,
           "device_launches": sum(e.count for e in kernels),
           "device_busy_share_of_unprofiled_wall": busy_s / plain_wall,
+          "device_idle_share_of_unprofiled_wall": 1.0 - busy_s / plain_wall,
           "top_device_kernels": [
               {"name": e.key[:70], "calls": e.count, "device_ms": dev_time(e) * 1e-3}
               for e in rows[:12] if dev_time(e) > 0]})
@@ -229,7 +236,8 @@ def main() -> int:
 
     from roborts_slam_tpu_torch import SlamEngine, load_config
     from roborts_slam_tpu_torch.__main__ import main as cli_main
-    from roborts_slam_tpu_torch.backend.processor import Backend, BackendSpec
+    from roborts_slam_tpu_torch.backend.processor import BackendSpec
+    from roborts_slam_tpu_torch.config import SlamConfig
     from roborts_slam_tpu_torch.frontend import matchers
     from roborts_slam_tpu_torch.io.pgm import GroundTruthMap
     from roborts_slam_tpu_torch.io.scan_log import ScanLog
@@ -238,7 +246,9 @@ def main() -> int:
     from roborts_slam_tpu_torch.frontend.processor import (
         FrontendSpec, init_frontend_state,
     )
-    from roborts_slam_tpu_torch.models.grid_map import ProbMap, world_to_map_pose
+    from roborts_slam_tpu_torch.models.grid_map import (
+        ProbMap, make_count_map, world_to_map_pose,
+    )
     from roborts_slam_tpu_torch.models.scan import LaserModel, ranges_to_packed
     from roborts_slam_tpu_torch.ops import correlative, raster, raycast
     from roborts_slam_tpu_torch.ops.cuda import build, correlation, raycarve
@@ -263,49 +273,91 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values())})
 
-    # ---- inputs: the willow log at full width ----
+    # ---- inputs: the willow log, and the corridor-loop log simulated here ----
     log = np.load(ROOT / "tests" / "data" / "golden_willow.npz")
     laser = LaserModel.from_array(log["laser"])
     ranges, odom, times = log["ranges"], log["odom"], log["times"]
     n_scans = len(times)
+
+    t0 = time.perf_counter()
+    loop_laser = LaserModel(angle_min=-np.deg2rad(135.0), angle_max=np.deg2rad(135.0),
+                            range_min=0.05, range_max=10.0, num_beams=1081,
+                            scan_time=0.025)
+    loop_traj = path_to_trajectory(corridor_loop_path(LOOP_LAPS), speed=1.0,
+                                   scan_rate=10.0)
+    loop_log = simulate_log(corridor_loop_map(GroundTruthMap), loop_laser,
+                            trajectory=loop_traj, odom_error=(0.03, 0.03, 0.05),
+                            range_noise=0.01, seed=LOOP_SEED)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    log_path = os.path.join(tmp.name, "corridor_loop.npz")
+    loop_log.save(log_path)
+
+    def head_log(n):
+        path = os.path.join(tmp.name, f"corridor_loop_{n}.npz")
+        ScanLog(loop_log.ranges[:n], loop_log.odom[:n], loop_log.times[:n],
+                loop_laser, loop_log.gt_poses[:n]).save(path)
+        return path
+
+    emit({"phase": "simulated_log", "scans": len(loop_log), "laps": LOOP_LAPS,
+          "path_m": float(np.linalg.norm(np.diff(loop_traj[:, :2], axis=0), axis=1).sum()),
+          "beams": loop_laser.num_beams, "seed": LOOP_SEED,
+          "odom_end_error_m": float(np.linalg.norm(
+              loop_log.odom[-1, :2] - (loop_log.gt_poses[-1, :2] - loop_log.gt_poses[0, :2]))),
+          "seconds": time.perf_counter() - t0})
+
+    # the three configurations the main paths run, at full width
     config = load_config(str(ROOT / "configs" / "simulation.yaml"),
                          max_points=1152, world_size=30.0)
     fspec = FrontendSpec.from_config(config, laser.range_max, 30.0)
     bspec = BackendSpec.from_config(config, laser.range_max, fspec.pub_spec)
     assert (fspec.fine_spec.height, bspec.fine_spec.height,
             fspec.pub_spec.height) == (3072, 2432, 640), "not the full width"
-    packed = [ranges_to_packed(ranges[i], laser, config.max_points)
-              for i in range(n_scans)]
-    pts = [torch.as_tensor(p[0], device=dev) for p in packed]
-    msk = [torch.as_tensor(p[1], device=dev) for p in packed]
-    nvs = [p[2] for p in packed]
-
-    # ---- phase 3: every kernel against its plain version, on the card ----
-    tiers = {"coarse": fspec.matcher.coarse, "fine": fspec.matcher.fine,
-             "super_fine": fspec.matcher.super_fine}
     # the real-robot profile: 0.025 m fine map in a 15 m window (640²), 1024²
-    # chain maps, its own tier thresholds (the tier geometry is the same)
+    # chain maps and pub map, its own tier thresholds
     rr_config = load_config(str(ROOT / "configs" / "real_robot.yaml"))
-    rr_fspec = FrontendSpec.from_config(rr_config, laser.range_max)
-    rr_bspec = BackendSpec.from_config(rr_config, laser.range_max, rr_fspec.pub_spec)
+    rr_fspec = FrontendSpec.from_config(rr_config, loop_laser.range_max)
+    rr_bspec = BackendSpec.from_config(rr_config, loop_laser.range_max, rr_fspec.pub_spec)
     assert (rr_fspec.fine_spec.height, rr_bspec.fine_spec.height,
             rr_fspec.pub_spec.height, rr_config.max_points) == (640, 1024, 1024, 1152)
-    rr_tiers = {"coarse": rr_fspec.matcher.coarse, "fine": rr_fspec.matcher.fine,
-                "super_fine": rr_fspec.matcher.super_fine}
-    K1 = dict(fn=correlation.correlation_scores, name="correlation_scores",
+    # the default configuration as leg 4 runs it: 4096² fine map, 40 m world
+    df_config = SlamConfig().replace(max_points=1152)
+    df_fspec = FrontendSpec.from_config(df_config, loop_laser.range_max, 40.0)
+    assert df_fspec.fine_spec.height == 4096, "not the full width"
+
+    def scan_set(scan_ranges, scan_laser, poses, n=18):
+        """The first ``n`` scans of a log on the card, packed to 1152 points."""
+        packed = [ranges_to_packed(scan_ranges[i], scan_laser, 1152) for i in range(n)]
+        return {"pts": [torch.as_tensor(p[0], device=dev) for p in packed],
+                "msk": [torch.as_tensor(p[1], device=dev) for p in packed],
+                "nvs": [p[2] for p in packed],
+                "poses": [torch.as_tensor(poses[i], **f32) for i in range(n)]}
+
+    willow_scans = scan_set(ranges, laser, odom)
+    loop_scans = scan_set(loop_log.ranges, loop_laser, loop_log.odom)
+    LEG1, LEG2 = "main_path", "main_path_back_end"
+    LEG3, LEG4 = "main_path_real_robot", "main_path_default_config"
+
+    # ---- phase 3: every kernel against its plain version, on the card, at
+    # the shapes of every main path ----
+    K1 = dict(fn=correlation.correlation_scores, name="correlation_scores", version=1,
               source="roborts_slam_tpu_torch/ops/cuda/correlation.cu",
               replaces="roborts_slam_tpu/ops/pallas/correlation.py:206")
-    K2 = dict(fn=correlation.correlation_scores_v2, name="correlation_scores_v2",
+    K2 = dict(fn=correlation.correlation_scores_v2, name="correlation_scores_v2", version=2,
               source="roborts_slam_tpu_torch/ops/cuda/correlation_v2.cu",
               replaces="roborts_slam_tpu/ops/pallas/correlation.py:407")
     entries = {}          # what the last ``kernels`` line lists
+    counted_as = {}       # entry key -> which per-shape launch counts it reads
+    optional = set()      # entries that a leg need not have launched
     both_kernels = []     # every shape, both correlation kernels side by side
+    # shapes held against the plain versions: (B, A, S, N, H, W) of the
+    # correlation kernels, (P, H, W) of the carve, (B, R, H, W) of the ray check
+    compared_corr, compared_mark, compared_check = set(), set(), set()
 
     def corr_entries(spec, tier_params, probs, offset, poses, points, n_valid,
-                     key, listed):
+                     key, listed, leg):
         """Both correlation kernels against the one plain version on one
         shape per tier; ``listed`` names the kernel whose entries go into the
-        ``kernels`` line (the one the main path runs at this shape)."""
+        ``kernels`` line (the one ``leg`` runs at this shape)."""
         for tname, params in tier_params.items():
             center = world_to_map_pose(offset, spec.inv_res, poses)
             grid = correlative.candidate_grid(spec, params, points, n_valid, center)
@@ -353,153 +405,193 @@ def main() -> int:
             shared = {
                 "shape": [B, A, S, N, H, W],
                 "plain_ms": time_ms(
-                    lambda: correlative.correlation_scores_plain(*args), reps=20),
+                    lambda: correlative.correlation_scores_plain(*args)),
                 "bound_ms": bms, "bound_by": by,
-                "library_ms": time_ms(lib, reps=20),
+                "library_ms": time_ms(lib),
                 "cells_touched": touched,
             }
-            # the two kernels timed in turns: first, second, second, first
-            ms = {k["name"]: [] for k in (K1, K2)}
-            for k in (K1, K2, K2, K1):
-                ms[k["name"]].append(time_ms(lambda: k["fn"](*args), reps=10))
+            compared_corr.add((B, A, S, N, H, W))
             for k in (K1, K2):
                 entry = {"name": f"{k['name']}[{key}:{tname}]", "route": "cuda",
                          "source": k["source"], "replaces": k["replaces"],
-                         "launches": 0, "max_abs_err": errs[k["name"]],
-                         "ms": statistics.mean(ms[k["name"]]), **shared}
+                         "launches": 0, "launches_from": leg,
+                         "max_abs_err": errs[k["name"]],
+                         "ms": time_ms(lambda: k["fn"](*args)), **shared}
                 both_kernels.append({**entry, "max_abs_k2_minus_k1": k2_minus_k1})
                 if k is listed:
                     entries[f"{key}:{tname}"] = entry
+                    counted_as[f"{key}:{tname}"] = ("corr", k["version"], B, A, S, N, H, W)
 
-    # front end: a 3072² fine map stamped with the first scans at their odometry
-    state = init_frontend_state(fspec, dev)
-    for i in range(0, 10):
-        raster.stamp_scan(fspec.fine_spec, state.fine, pts[i], msk[i],
-                          torch.as_tensor(odom[i], **f32))
-    q = 12
-    pose_q = torch.as_tensor(odom[q] + np.array([0.03, -0.02, 0.01]), **f32)
-    corr_entries(fspec.fine_spec, tiers, state.fine.probs, state.fine.offset,
-                 pose_q, pts[q], nvs[q], "front_b1", K1)
-
-    # back end: B=4 chain maps of 2432², ten scans each
-    B = 4
-    chain_ids = [list(range(b, b + 10)) for b in range(B)]
-    cp = torch.stack([torch.stack([pts[i] for i in c]) for c in chain_ids])
-    cm = torch.stack([torch.stack([msk[i] for i in c]) for c in chain_ids])
-    cpo = torch.stack([torch.as_tensor(odom[c], **f32) for c in chain_ids])
-    bs = bspec.fine_spec
-    size = bs.width * bs.resolution
-    center = torch.as_tensor(odom[q], **f32)
-    boff = torch.stack([-(center[0] - 0.5 * size), -(center[1] - 0.5 * size)])
-    chain_maps = raster.stamp_scan_batch(
-        bs, ProbMap(torch.full((B, bs.height, bs.width), bs.default_prob, **f32), boff),
-        cp, cm, cpo, torch.ones((B, 10), dtype=torch.bool, device=dev))
-    inits = pose_q[None] + torch.as_tensor(
-        [[0, 0, 0], [0.02, 0, 0], [0, 0.02, 0], [0, 0, 0.01]], **f32)
-    corr_entries(bs, tiers, chain_maps.probs, boff, inits, pts[q], nvs[q],
-                 "chain_b4", K1)
-
-    # the real-robot profile's shapes: a 640² window map (B=1) and 1024²
-    # chain maps (B=4), stamped from the same scans
-    rr_state = init_frontend_state(rr_fspec, dev)
-    for i in range(0, 10):
-        raster.stamp_scan(rr_fspec.fine_spec, rr_state.fine, pts[i], msk[i],
-                          torch.as_tensor(odom[i], **f32))
-    corr_entries(rr_fspec.fine_spec, rr_tiers, rr_state.fine.probs,
-                 rr_state.fine.offset, pose_q, pts[q], nvs[q], "rr_front_b1", K2)
-    rbs = rr_bspec.fine_spec
-    rsize = rbs.width * rbs.resolution
-    rboff = torch.stack([-(center[0] - 0.5 * rsize), -(center[1] - 0.5 * rsize)])
-    rr_chain_maps = raster.stamp_scan_batch(
-        rbs, ProbMap(torch.full((B, rbs.height, rbs.width), rbs.default_prob, **f32),
-                     rboff),
-        cp, cm, cpo, torch.ones((B, 10), dtype=torch.bool, device=dev))
-    corr_entries(rbs, rr_tiers, rr_chain_maps.probs, rboff, inits, pts[q], nvs[q],
-                 "rr_chain_b4", K2)
-    emit({"phase": "correlation_kernels", "timed": "CUDA events, 10 back-to-back "
-          "launches, median of 10 runs, in turns K1 K2 K2 K1, mean of the two",
-          "entries": both_kernels})
-    assert max(e["max_abs_k2_minus_k1"] for e in both_kernels) <= 1e-5
-    del rr_chain_maps
-
-    # carve: 1152 beams on the 640² pub map
-    ps = fspec.pub_spec
-    pub = state.pub
-    start, end, beam_mask = raster._scan_cells(ps.inv_res, pub.offset, pts[q],
-                                               msk[q], pose_q)
-    start, end, beam_mask = start.contiguous(), end.contiguous(), beam_mask.contiguous()
-    got = raycarve.ray_mark_image(start, end, beam_mask, ps.height, ps.width)
-    want = raster.mark_image_plain(start, end, beam_mask, ps.height, ps.width)
-    torch.cuda.synchronize()
-    differing = int((got != want).sum())
-    assert differing == 0, f"ray_mark_image: {differing} cells differ"
-    assert int((got == 2).sum()) > 0 and int((got == 1).sum()) > 0
-    delta = (end - start[None]).abs().amax(-1).clamp(min=1)
-    ray_cells = int((delta + 1)[beam_mask].sum())
-    bms, by = bound(ps.height * ps.width * 4 + end.numel() * 4 + beam_mask.numel() + 8,
-                    ray_cells * 12)
-    entries["carve"] = {
-        "name": "ray_mark_image", "route": "cuda",
-        "source": "roborts_slam_tpu_torch/ops/cuda/raycarve.cu",
-        "replaces": "roborts_slam_tpu/ops/pallas/raycarve.py:57",
-        "shape": [int(end.shape[0]), ps.height, ps.width], "launches": 0,
-        "max_abs_err": float(differing),
-        "ms": time_ms(lambda: raycarve.ray_mark_image(
-            start, end, beam_mask, ps.height, ps.width)),
-        "plain_ms": time_ms(lambda: raster.mark_image_plain(
-            start, end, beam_mask, ps.height, ps.width), reps=20),
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "ray_cells": ray_cells,
-    }
-
-    # check: 100 rays against a pub map carved from the first scans, B=1 and B=4
-    for i in range(0, 10):
-        raster.update_count_map(ps, pub, pts[i], msk[i],
-                                torch.as_tensor(odom[i], **f32), 0.3, 0.7)
-    thr_d2 = int(np.floor(config.map_check_bound_tolerance ** 2)) + 1
-    sidx, svalid = raycast._sample_beams(pts[q], msk[q], nvs[q],
-                                         config.map_check_point_num)
-
-    def k4_args(poses):
+    def check_args(cfg, ps, pub, points, pmask, n_valid, poses):
+        """Arguments of ``bad_ray_count`` as ``map_feedback_penalty`` forms
+        them for ``poses`` (B, 3)."""
+        sidx, svalid = raycast._sample_beams(points, pmask, n_valid,
+                                             cfg.map_check_point_num)
         pose_map = world_to_map_pose(pub.offset, ps.inv_res, poses)
-        e = raster._cell_round(transform_points(pose_map, pts[q][sidx] * ps.inv_res))
+        e = raster._cell_round(transform_points(pose_map, points[sidx] * ps.inv_res))
         s = raster._cell_round(pose_map[..., :2])
         ok = (svalid & ~torch.all(e == s[:, None, :], dim=-1)).contiguous()
+        thr_d2 = int(np.floor(cfg.map_check_bound_tolerance ** 2)) + 1
         return (s.contiguous(), e.contiguous(), ok, pub.hits, pub.passes,
-                config.map_min_passthrough, config.map_occu_threshold, thr_d2)
+                cfg.map_min_passthrough, cfg.map_occu_threshold, thr_d2)
 
-    for key, poses in (("b1", pose_q[None]), ("b4", inits)):
-        args = k4_args(poses)
-        s, e, ok = args[:3]
-        got = raycarve.bad_ray_count(*args)
-        want = raycast.bad_rays_plain(*args)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), f"bad_ray_count[{key}]: {got} vs {want}"
-        n = (e - s[:, None, :]).abs().amax(-1).clamp(min=1)
-        visited = int((n + 1)[ok].sum())
-        bms, by = bound(visited * 8 + e.numel() * 4 + s.numel() * 4 + ok.numel()
-                        + got.numel() * 4, visited * 20)
-        entries[f"check_{key}"] = {
-            "name": f"bad_ray_count[{key}]", "route": "cuda",
-            "source": "roborts_slam_tpu_torch/ops/cuda/raycarve.cu",
-            "replaces": "roborts_slam_tpu/ops/pallas/raycarve.py:164",
-            "shape": [int(ok.shape[0]), int(ok.shape[1]), ps.height, ps.width],
-            "launches": 0, "max_abs_err": float((got - want).abs().max()),
-            "counts": got.tolist(),
-            "ms": time_ms(lambda: raycarve.bad_ray_count(*args)),
-            "plain_ms": time_ms(lambda: raycast.bad_rays_plain(*args), reps=20),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "cells_on_rays": visited,
-        }
-    # displaced poses, where many rays DO cross occupied cells
-    args = k4_args(inits + torch.as_tensor([0.6, -0.4, 0.5], **f32))
-    got, want = raycarve.bad_ray_count(*args), raycast.bad_rays_plain(*args)
-    assert torch.equal(got, want) and int(got.sum()) > 0, (got, want)
-    bad_displaced = got.tolist()
+    Q = 12                 # the scan every comparison matches or carves
+    NUDGE = [[0, 0, 0], [0.02, 0, 0], [0, 0.02, 0], [0, 0, 0.01],
+             [-0.02, 0, 0], [0, -0.02, 0], [0, 0, -0.01], [0.02, 0.02, 0]]
+
+    def start_poses(scans, B):
+        """The pose the comparisons start scan ``Q`` from, and ``B`` start
+        poses around it (a chain batch holds at most 8)."""
+        pose_q = scans["poses"][Q] + torch.as_tensor([0.03, -0.02, 0.01], **f32)
+        return pose_q, pose_q[None] + torch.as_tensor(NUDGE[:B], **f32)
+
+    def pub_entries(ctx, ps, leg, batches, carve=True):
+        """The carve kernel and the ray-check kernel (one batch size per
+        entry of ``batches``) against their plain versions on a pub map of
+        ``ps``'s shape, made here from ten scans. Returns the map."""
+        cfg, scans = ctx["cfg"], ctx["scans"]
+        key = f"{ctx['tag']}pub_{ps.height}x{ps.width}"
+        points, pmask, n_valid = scans["pts"][Q], scans["msk"][Q], scans["nvs"][Q]
+        pose_q = start_poses(scans, 1)[0]
+        pub = make_count_map(ps, [ps.width * ps.resolution * cfg.map_offset_x,
+                                  ps.height * ps.resolution * cfg.map_offset_y], dev)
+        if carve:
+            start, end, beam_mask = (t.contiguous() for t in raster._scan_cells(
+                ps.inv_res, pub.offset, points, pmask, pose_q))
+            got = raycarve.ray_mark_image(start, end, beam_mask, ps.height, ps.width)
+            want = raster.mark_image_plain(start, end, beam_mask, ps.height, ps.width)
+            torch.cuda.synchronize()
+            differing = int((got != want).sum())
+            assert differing == 0, f"ray_mark_image[{key}]: {differing} cells differ"
+            assert int((got == 2).sum()) > 0 and int((got == 1).sum()) > 0
+            delta = (end - start[None]).abs().amax(-1).clamp(min=1)
+            ray_cells = int((delta + 1)[beam_mask].sum())
+            bms, by = bound(ps.height * ps.width * 4 + end.numel() * 4
+                            + beam_mask.numel() + 8, ray_cells * 12)
+            P = int(end.shape[0])
+            entries[f"{key}:carve"] = {
+                "name": f"ray_mark_image[{key}]", "route": "cuda",
+                "source": "roborts_slam_tpu_torch/ops/cuda/raycarve.cu",
+                "replaces": "roborts_slam_tpu/ops/pallas/raycarve.py:57",
+                "shape": [P, ps.height, ps.width], "launches": 0, "launches_from": leg,
+                "max_abs_err": float(differing),
+                "ms": time_ms(lambda: raycarve.ray_mark_image(
+                    start, end, beam_mask, ps.height, ps.width)),
+                "plain_ms": time_ms(lambda: raster.mark_image_plain(
+                    start, end, beam_mask, ps.height, ps.width)),
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "ray_cells": ray_cells,
+            }
+            counted_as[f"{key}:carve"] = ("mark", P, ps.height, ps.width)
+            compared_mark.add((P, ps.height, ps.width))
+
+        # check: rays against the pub map carved from the first scans
+        for i in range(10):
+            raster.update_count_map(ps, pub, scans["pts"][i], scans["msk"][i],
+                                    scans["poses"][i], 0.3, 0.7)
+        for B in batches:
+            poses = start_poses(scans, B)[1]
+            args = check_args(cfg, ps, pub, points, pmask, n_valid, poses)
+            s, e, ok = args[:3]
+            got = raycarve.bad_ray_count(*args)
+            want = raycast.bad_rays_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"bad_ray_count[{key}_b{B}]: {got} vs {want}"
+            n = (e - s[:, None, :]).abs().amax(-1).clamp(min=1)
+            visited = int((n + 1)[ok].sum())
+            bms, by = bound(visited * 8 + e.numel() * 4 + s.numel() * 4 + ok.numel()
+                            + got.numel() * 4, visited * 20)
+            # displaced poses, where many rays DO cross occupied cells
+            far_args = check_args(cfg, ps, pub, points, pmask, n_valid,
+                                  poses + torch.as_tensor([0.6, -0.4, 0.5], **f32))
+            bad = raycarve.bad_ray_count(*far_args)
+            assert torch.equal(bad, raycast.bad_rays_plain(*far_args)) \
+                and int(bad.sum()) > 0, (key, B, bad)
+            R = int(ok.shape[1])
+            entries[f"{key}:check_b{B}"] = {
+                "name": f"bad_ray_count[{key}_b{B}]", "route": "cuda",
+                "source": "roborts_slam_tpu_torch/ops/cuda/raycarve.cu",
+                "replaces": "roborts_slam_tpu/ops/pallas/raycarve.py:164",
+                "shape": [B, R, ps.height, ps.width],
+                "launches": 0, "launches_from": leg,
+                "max_abs_err": float((got - want).abs().max()),
+                "counts": got.tolist(), "counts_displaced": bad.tolist(),
+                "ms": time_ms(lambda: raycarve.bad_ray_count(*args)),
+                "plain_ms": time_ms(lambda: raycast.bad_rays_plain(*args)),
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "cells_on_rays": visited,
+            }
+            counted_as[f"{key}:check_b{B}"] = ("check", B, R, ps.height, ps.width)
+            compared_check.add((B, R, ps.height, ps.width))
+        return pub
+
+    def chain_entries(ctx, B, leg):
+        """Both correlation kernels against the plain version on ``B`` chain
+        maps of the configuration's back end, ten scans each."""
+        scans, bs = ctx["scans"], ctx["chain_spec"]
+        pts, msk, poses = scans["pts"], scans["msk"], scans["poses"]
+        chain_ids = [list(range(b, b + 10)) for b in range(B)]
+        cp = torch.stack([torch.stack([pts[i] for i in c]) for c in chain_ids])
+        cm = torch.stack([torch.stack([msk[i] for i in c]) for c in chain_ids])
+        cpo = torch.stack([torch.stack([poses[i] for i in c]) for c in chain_ids])
+        size = bs.width * bs.resolution
+        boff = torch.stack([-(poses[Q][0] - 0.5 * size), -(poses[Q][1] - 0.5 * size)])
+        chain_maps = raster.stamp_scan_batch(
+            bs, ProbMap(torch.full((B, bs.height, bs.width), bs.default_prob, **f32), boff),
+            cp, cm, cpo, torch.ones((B, 10), dtype=torch.bool, device=dev))
+        corr_entries(bs, ctx["tiers"], chain_maps.probs, boff, start_poses(scans, B)[1],
+                     pts[Q], scans["nvs"][Q], f"{ctx['tag']}chain_b{B}", ctx["listed"], leg)
+
+    def compare_config(tag, cfg, fs_, chain_spec, scans, listed, leg, chain_leg):
+        """Every kernel against its plain version at one configuration's
+        shapes: the front end's fine map (B=1), the back end's chain maps
+        (one chain and four, where ``chain_leg`` runs chain matches) and the
+        pub map (one pose and four). Returns what ``account`` needs to
+        compare further batch sizes, the front-end state and the pub map."""
+        ctx = {"tag": tag, "cfg": cfg, "fs": fs_, "chain_spec": chain_spec,
+               "scans": scans, "listed": listed,
+               "tiers": {"coarse": fs_.matcher.coarse, "fine": fs_.matcher.fine,
+                         "super_fine": fs_.matcher.super_fine}}
+        st = init_frontend_state(fs_, dev)
+        for i in range(10):
+            raster.stamp_scan(fs_.fine_spec, st.fine, scans["pts"][i], scans["msk"][i],
+                              scans["poses"][i])
+        corr_entries(fs_.fine_spec, ctx["tiers"], st.fine.probs, st.fine.offset,
+                     start_poses(scans, 1)[0], scans["pts"][Q], scans["nvs"][Q],
+                     f"{tag}front_b1", listed, leg)
+        if chain_leg is not None:
+            chain_entries(ctx, 1, chain_leg)
+            chain_entries(ctx, 4, chain_leg)
+            optional.update(f"{tag}chain_b4:{t}" for t in ctx["tiers"])
+        pub = pub_entries(ctx, fs_.pub_spec, leg, (1, 4))
+        optional.add(f"{tag}pub_{fs_.pub_spec.height}x{fs_.pub_spec.width}:check_b4")
+        return ctx, st, pub
+
+    # legs 1-2: 3072² fine map, 2432² chain maps, 640² pub map, first kernel
+    ctx_sim, state, pub = compare_config(
+        "", config, fspec, bspec.fine_spec, willow_scans, K1, LEG1, LEG2)
+    # leg 3: 640² window map, 1024² chain maps and pub map, second kernel
+    ctx_rr = compare_config("rr_", rr_config, rr_fspec, rr_bspec.fine_spec,
+                            loop_scans, K2, LEG3, LEG3)[0]
+    # leg 4: 4096² fine map, 896² pub map, first kernel; its 200 scans
+    # propose no chain match (the windowed short leg matches one 2432² map,
+    # the shape of the simulation profile's single chain map)
+    ctx_df = compare_config("default_", df_config, df_fspec, None, loop_scans,
+                            K1, LEG4, None)[0]
+    ctx_df["chain_spec"] = BackendSpec.from_config(
+        df_config, loop_laser.range_max, df_fspec.pub_spec).fine_spec
+    emit({"phase": "correlation_kernels", "timed": "CUDA events, 10 back-to-back "
+          "launches, warm, median of 20 runs, every function the same way",
+          "entries": both_kernels})
+    assert max(e["max_abs_k2_minus_k1"] for e in both_kernels) <= 1e-5
 
     # edge cases, kernel against plain version (not timed): rays that leave
     # the map on the low side (negative DDA numerators: the kernels' floor
     # division), a sensor outside the map, an empty scan, a pose far outside
+    q = Q
+    pts, msk, nvs = willow_scans["pts"], willow_scans["msk"], willow_scans["nvs"]
+    ps, tiers = fspec.pub_spec, ctx_sim["tiers"]
+    pose_q = start_poses(willow_scans, 1)[0]
     edge = {}
     corner = torch.as_tensor([-15.9, -15.8, 0.7], **f32)      # map cell (2, 4)
     outside = torch.as_tensor([-16.5, -17.0, 2.0], **f32)
@@ -512,7 +604,8 @@ def main() -> int:
         edge[f"carve_{name}_cells"] = int((got > 0).sum())
         assert int((en < 0).any()) == 1
     assert edge["carve_corner_cells"] > 0
-    args = k4_args(torch.stack([corner, outside, pose_q]))
+    args = check_args(config, ps, pub, pts[q], msk[q], nvs[q],
+                      torch.stack([corner, outside, pose_q]))
     got, want = raycarve.bad_ray_count(*args), raycast.bad_rays_plain(*args)
     assert torch.equal(got, want), (got, want)
     edge["check_counts"] = got.tolist()
@@ -545,10 +638,77 @@ def main() -> int:
             assert abs(edge[f"{tag}_{name}"] - expect) < 1e-5, (name, expect)
         assert edge[f"{tag}_empty_scan"] == 0.0
     torch.cuda.synchronize()
-    emit({"phase": "kernels_checked", "bad_counts_displaced": bad_displaced,
-          "edge_cases": edge, "entries": len(entries)})
-    del state, rr_state, chain_maps, cp, cm, cpo
+    emit({"phase": "kernels_checked", "edge_cases": edge, "entries": len(entries),
+          "correlation_shapes": sorted(compared_corr),
+          "carve_shapes": sorted(compared_mark),
+          "check_shapes": sorted(compared_check)})
+    del state, pub
     torch.cuda.empty_cache()
+
+    # ---- launch counts: set to 0 before a leg, read after it ----
+    def reset_counts():
+        correlation.launches = correlation.launches_v2 = 0
+        raycarve.mark_launches = raycarve.check_launches = 0
+        for by_shape in (correlation.launch_shapes, raycarve.mark_shapes,
+                         raycarve.check_shapes):
+            by_shape.clear()
+
+    def read_counts():
+        return {"correlation_scores": correlation.launches,
+                "correlation_scores_v2": correlation.launches_v2,
+                "ray_mark_image": raycarve.mark_launches,
+                "bad_ray_count": raycarve.check_launches}
+
+    def read_shapes():
+        return {"corr": dict(correlation.launch_shapes),
+                "mark": dict(raycarve.mark_shapes),
+                "check": dict(raycarve.check_shapes)}
+
+    def shapes_said(shapes):
+        return {kind: {"x".join(map(str, k)): v for k, v in sorted(by.items())}
+                for kind, by in shapes.items()}
+
+    def on_maps_of(shapes, version, spec):
+        """Launches of one correlation kernel on maps of ``spec``'s shape."""
+        return sum(v for k, v in shapes["corr"].items()
+                   if k[0] == version and k[5:] == (spec.height, spec.width))
+
+    def account(leg, shapes, ctx):
+        """After a leg: every shape it launched a kernel at and that was not
+        yet held against the plain version (a chain batch of another size, a
+        pub map that grew) is compared now, or the leg fails; then the
+        launches of the entries listed for the leg are filled in."""
+        for ver, B, *rest in sorted(shapes["corr"]):
+            if (B, *rest) in compared_corr:
+                continue
+            bs = ctx["chain_spec"]
+            assert tuple(rest[3:]) == (bs.height, bs.width), \
+                f"{leg}: correlation shape {(ver, B, *rest)} not compared"
+            chain_entries(ctx, B, leg)
+            optional.update(f"{ctx['tag']}chain_b{B}:{t}" for t in ctx["tiers"])
+        maps = {k[1:] for k in shapes["mark"]} | {k[2:] for k in shapes["check"]}
+        for H, W in sorted(maps):
+            batches = sorted({k[0] for k in shapes["check"]
+                              if k[2:] == (H, W) and k not in compared_check})
+            carve = any(k[1:] == (H, W) and k not in compared_mark
+                        for k in shapes["mark"])
+            if batches or carve:
+                ps_ = dataclasses.replace(ctx["fs"].pub_spec, height=H, width=W)
+                before = set(entries)
+                pub_entries(ctx, ps_, leg, batches, carve=carve)
+                optional.update(set(entries) - before)
+        for kind, launched in shapes.items():
+            held = {"corr": compared_corr, "mark": compared_mark,
+                    "check": compared_check}[kind]
+            for k in launched:
+                assert (k[1:] if kind == "corr" else k) in held, (leg, kind, k)
+        for key, e in entries.items():
+            if e["launches_from"] != leg or e["launches"] > 0:
+                continue
+            kind, *m = counted_as[key]
+            e["launches"] = shapes[kind].get(tuple(m), 0)
+            assert e["launches"] > 0 or key in optional, \
+                f"{e['name']}: not launched on {leg}"
 
     # ---- phase 4: the main path at full width ----
     # 70 scans out, then the same 70 in reverse order with times continuing
@@ -557,34 +717,12 @@ def main() -> int:
     dt = float(times[1] - times[0])
     feed_times = [float(times[0]) + dt * k for k in range(len(order))]
 
-    def reset_counts():
-        correlation.launches = correlation.launches_v2 = 0
-        raycarve.mark_launches = raycarve.check_launches = 0
-
-    def read_counts():
-        return {"correlation_scores": correlation.launches,
-                "correlation_scores_v2": correlation.launches_v2,
-                "ray_mark_image": raycarve.mark_launches,
-                "bad_ray_count": raycarve.check_launches}
-
     def drive(cfg):
         """One out-and-back run through the public entry points; returns the
-        engine, the kernels' launch counts of the run, and how many of them
-        the back end's chain matches made."""
-        chain = {"correlation_scores": 0, "bad_ray_count": 0}
+        engine, its report and the kernels' launch counts by shape."""
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         eng = SlamEngine(cfg, laser, world_size=30.0)
-        match_one = eng.backend._match_chain_batch_one
-
-        def counted(*a, **kw):          # attributes launches to chain matches
-            before = read_counts()
-            out = match_one(*a, **kw)
-            for name in chain:
-                chain[name] += read_counts()[name] - before[name]
-            return out
-
-        eng.backend._match_chain_batch_one = counted
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for k, i in enumerate(order):
@@ -595,61 +733,54 @@ def main() -> int:
         pub_map = eng.get_pub_map()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        counts = read_counts()
+        counts, shapes = read_counts(), read_shapes()
         kept = len(eng.store)
         traj = eng.trajectory_array()
+        chain_corr = on_maps_of(shapes, 1, eng.bspec.fine_spec)
         report = {
             "scans_fed": len(order), "kept": kept, "links": eng.backend.num_links,
             "loop_closures": eng.backend.num_loop_closures,
             "spa_solves": eng.backend.num_solves,
             "chain_dispatches": eng.backend.num_chain_dispatches,
-            "launches": counts, "launches_in_chain_matches": dict(chain),
+            "launches": counts, "launches_by_shape": shapes_said(shapes),
+            "launches_in_chain_matches": {
+                "correlation_scores": chain_corr,
+                "bad_ray_count": eng.backend.num_chain_dispatches},
             "seconds": run_s, "loop_seconds": loop_s,
             "optimize_seconds": run_s - loop_s,
             "scans_per_s_fed": len(order) / loop_s, "scans_per_s_kept": kept / loop_s,
             "match_time_s": eng.diag.match_time_s,
             "backend_time_s": eng.diag.backend_time_s,
+            "chain_match_s": eng.backend.chain_match_time_s,
+            "solve_and_correct_s": eng.backend.solve_time_s,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
         assert kept >= 20, f"kept {kept} scans"
         assert eng.backend.num_links > 0 and eng.backend.num_solves >= 1
         assert counts.pop("correlation_scores_v2") == 0, counts
         assert all(v > 0 for v in counts.values()), counts
+        # three tiers per chain-match call; one ray check per front-end step
+        # and one per chain-match call
+        assert chain_corr == 3 * eng.backend.num_chain_dispatches, chain_corr
+        assert counts["bad_ray_count"] == len(order) + eng.backend.num_chain_dispatches
         assert np.isfinite(traj).all() and traj.shape == (kept, 4)
         assert (pub_map == 100).any() and (pub_map == 0).any()
-        return eng, report, counts, chain
+        return eng, report, shapes
 
     from roborts_slam_tpu_torch.backend import spa
     # leg 1: the shipped profile unchanged. This short log never leaves the
     # 7 m link radius, so the graph proposes no chain match here.
-    engine, report, front_counts, _ = drive(config)
-    emit({"phase": "main_path", **report, "spa_host_syncs": spa.host_syncs})
+    engine, report, shapes1 = drive(config)
+    emit({"phase": LEG1, **report, "spa_host_syncs": spa.host_syncs})
+    account(LEG1, shapes1, ctx_sim)
     kept = len(engine.store)
     # leg 2: the same run with the link radius cut to 1 m, so that the back
     # end proposes near chains and loop candidates by itself: chain matches
     # (B chains a call, 2432² maps), loop verification, SPA, map rebuilds.
-    engine2, report2, _, chain_counts = drive(
-        config.replace(link_scan_max_distance=1.0))
-    emit({"phase": "main_path_back_end", "link_scan_max_distance": 1.0, **report2})
+    engine2, report2, shapes2 = drive(config.replace(link_scan_max_distance=1.0))
+    emit({"phase": LEG2, "link_scan_max_distance": 1.0, **report2})
     assert report2["chain_dispatches"] > 0, "no chain match was proposed"
-    assert all(v > 0 for v in chain_counts.values()), chain_counts
+    account(LEG2, shapes2, ctx_sim)
     del engine2
-    for e in entries.values():
-        if e["name"].startswith("correlation_scores_v2"):
-            continue                # the second kernel's launches: leg 3 below
-        front = not e["name"].startswith(("correlation_scores[chain", "bad_ray_count[b4"))
-        if e["name"].startswith("correlation_scores"):
-            # every match launches each of the three tiers once
-            total = front_counts["correlation_scores"] if front \
-                else chain_counts["correlation_scores"]
-            assert total % 3 == 0
-            e["launches"] = total // 3
-        elif e["name"] == "ray_mark_image":
-            e["launches"] = front_counts["ray_mark_image"]
-        else:
-            e["launches"] = front_counts["bad_ray_count"] if front \
-                else chain_counts["bad_ray_count"]
-        e["launches_from"] = "main_path" if front else "main_path_back_end"
-        assert e["launches"] > 0, f"{e['name']}: not launched on the main path"
 
     # where a kept scan's time can go: one SPA solve, one rebuild of all maps
     # after a correction, one B=4 chain match and the dilation inside it
@@ -659,7 +790,7 @@ def main() -> int:
     syncs0 = spa.host_syncs
     t1 = time.perf_counter()
     data = engine.backend.graph.as_solver_data(engine.store.poses_array(), dev)
-    solved, _, lm_iters = spa.solve_pose_graph(data)
+    _, _, lm_iters = spa.solve_pose_graph(data)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t1
     solve_syncs = spa.host_syncs - syncs0
@@ -669,6 +800,7 @@ def main() -> int:
     rebuild_s = time.perf_counter() - t1
     chain_ms = time_ms(lambda: engine.backend._match_chain_batch(
         chains, last, engine.store.poses[last].copy()), reps=10, warm=2, inner=2)
+    bs = bspec.fine_spec
     img = (torch.rand((4, bs.height, bs.width), device=dev) > 0.999).float()
     dilate_ms = time_ms(lambda: raster.dilate_with_kernel(img, bs.blur_kernel()),
                         reps=10, warm=2, inner=2)
@@ -678,94 +810,54 @@ def main() -> int:
           "rebuild_all_maps_seconds": rebuild_s, "rebuild_scans": kept,
           "chain_match_b4_ms": chain_ms, "dilate_b4_2432_ms": dilate_ms,
           "frontend_ms_per_scan": engine.diag.match_time_s / len(order) * 1e3})
-    del img
+    del img, engine
 
     if "--profile" in sys.argv[1:]:
         rest = sys.argv[sys.argv.index("--profile") + 1:]
-        profile_frontend(SlamEngine, config, laser, ranges, odom, times,
-                         rest[0] if rest else "out")
+        out_dir = rest[0] if rest else "out"
+        profile_frontend(SlamEngine, config, laser, ranges, odom, times, 30.0,
+                         out_dir, "simulation")
+        with corr_kernel(2):
+            profile_frontend(SlamEngine, rr_config, loop_laser, loop_log.ranges,
+                             loop_log.odom, loop_log.times, None, out_dir, "real_robot")
+        profile_frontend(SlamEngine, df_config, loop_laser, loop_log.ranges,
+                         loop_log.odom, loop_log.times, 40.0, out_dir, "default")
 
     # ---- phase 5: kernel path against plain path, end to end ----
-    def replay(device, n):
-        eng = SlamEngine(config, laser, world_size=30.0, device=device)
-        kept_ids = [i for i in range(n)
-                    if eng.process(ranges[i], odom[i], float(times[i]))]
-        return kept_ids, eng.trajectory_array()
+    def replay(cfg, scan_laser, scan_log, world_size, device, n):
+        """The first ``n`` scans through a new engine on ``device`` (None:
+        the card, kernels; "cpu": the plain versions)."""
+        reset_counts()
+        eng = SlamEngine(cfg, scan_laser, world_size=world_size, device=device)
+        sr, so, st = scan_log
+        kept_ids = [i for i in range(n) if eng.process(sr[i], so[i], float(st[i]))]
+        return kept_ids, eng.trajectory_array(), read_counts()
 
-    before = correlation.launches
-    ids_gpu, traj_gpu = replay(None, 20)
-    assert correlation.launches > before
-    ids_cpu, traj_cpu = replay("cpu", 20)
-    assert ids_gpu == ids_cpu, (ids_gpu, ids_cpu)
-    d = np.abs(traj_gpu - traj_cpu)
-    d[:, 3] = np.abs(np.arctan2(np.sin(d[:, 3]), np.cos(d[:, 3])))
-    emit({"phase": "kernel_vs_plain_path", "scans": 20, "kept": len(ids_gpu),
-          "max_pos_diff_m": float(d[:, 1:3].max()),
-          "max_ang_diff_rad": float(d[:, 3].max())})
-    assert d[:, 1:3].max() <= POS_TOL and d[:, 3].max() <= ANG_TOL, d.max(0)
+    def same_path(phase, a, b, **said):
+        """Two replays kept the same scans and agree on every pose."""
+        assert a[0] == b[0], (phase, a[0], b[0])
+        d = np.abs(a[1] - b[1])
+        d[:, 3] = np.abs(np.arctan2(np.sin(d[:, 3]), np.cos(d[:, 3])))
+        emit({"phase": phase, **said, "kept": len(a[0]),
+              "max_pos_diff_m": float(d[:, 1:3].max()),
+              "max_ang_diff_rad": float(d[:, 3].max())})
+        assert d[:, 1:3].max() <= POS_TOL and d[:, 3].max() <= ANG_TOL, (phase, d.max(0))
 
-    # ---- phase 6: the corridor-loop log, simulated from a seed ----
-    t0 = time.perf_counter()
-    loop_laser = LaserModel(angle_min=-np.deg2rad(135.0), angle_max=np.deg2rad(135.0),
-                            range_min=0.05, range_max=10.0, num_beams=1081,
-                            scan_time=0.025)
-    loop_traj = path_to_trajectory(corridor_loop_path(LOOP_LAPS), speed=1.0,
-                                   scan_rate=10.0)
-    loop_log = simulate_log(corridor_loop_map(GroundTruthMap), loop_laser,
-                            trajectory=loop_traj, odom_error=(0.03, 0.03, 0.05),
-                            range_noise=0.01, seed=LOOP_SEED)
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    log_path = os.path.join(tmp.name, "corridor_loop.npz")
-    loop_log.save(log_path)
-
-    def head_log(n):
-        path = os.path.join(tmp.name, f"corridor_loop_{n}.npz")
-        ScanLog(loop_log.ranges[:n], loop_log.odom[:n], loop_log.times[:n],
-                loop_laser, loop_log.gt_poses[:n]).save(path)
-        return path
-
-    emit({"phase": "simulated_log", "scans": len(loop_log), "laps": LOOP_LAPS,
-          "path_m": float(np.linalg.norm(np.diff(loop_traj[:, :2], axis=0), axis=1).sum()),
-          "beams": loop_laser.num_beams, "seed": LOOP_SEED,
-          "odom_end_error_m": float(np.linalg.norm(
-              loop_log.odom[-1, :2] - (loop_log.gt_poses[-1, :2] - loop_log.gt_poses[0, :2]))),
-          "seconds": time.perf_counter() - t0})
+    willow_log = (ranges, odom, times)
+    corridor_log = (loop_log.ranges, loop_log.odom, loop_log.times)
+    on_card = replay(config, laser, willow_log, 30.0, None, 20)
+    assert on_card[2]["correlation_scores"] > 0
+    same_path("kernel_vs_plain_path", on_card,
+              replay(config, laser, willow_log, 30.0, "cpu", 20),
+              configuration="simulation", scans=20)
 
     def run_cli(argv, what):
         """``python -m roborts_slam_tpu_torch`` with ``argv``, in-process.
-        Returns the engine it built and a report: kernel launch counts of the
-        run (set to 0 just before, read just after), those made inside chain
-        matches, and where the host's time went."""
-        seen = {"engine": None, "recenters": 0, "dedistorted": 0}
-        spent = {"dedistort_s": 0.0, "recenter_s": 0.0, "chain_match_s": 0.0,
-                 "solve_and_correct_s": 0.0}
-        chain = {"correlation_scores": 0, "correlation_scores_v2": 0, "bad_ray_count": 0}
+        Returns the engine it built, a report (kernel launch counts of the
+        run, set to 0 just before and read just after, and where the host's
+        time went by the engine's own diagnostics) and the counts by shape."""
+        seen = {"engine": None}
         opt_costs = []
-
-        def timed(key, sync=False, count=None):
-            def wrap(fn):
-                def inner(self, *a, **kw):
-                    t = time.perf_counter()
-                    out = fn(self, *a, **kw)
-                    if sync:
-                        torch.cuda.synchronize()
-                    spent[key] += time.perf_counter() - t
-                    if count:
-                        seen[count] += 1
-                    return out
-                return inner
-            return wrap
-
-        def chain_counted(fn):
-            def inner(self, *a, **kw):
-                before = read_counts()
-                t = time.perf_counter()
-                out = fn(self, *a, **kw)          # ends in its one host fetch
-                spent["chain_match_s"] += time.perf_counter() - t
-                for name in chain:
-                    chain[name] += read_counts()[name] - before[name]
-                return out
-            return inner
 
         def engine_seen(fn):
             def inner(self, *a, **kw):
@@ -783,15 +875,8 @@ def main() -> int:
 
         said = io.StringIO()
         with contextlib.ExitStack() as stack:
-            for owner, name, wrapper in (
-                    (SlamEngine, "run_log", engine_seen),
-                    (SlamEngine, "_dedistorted_points", timed("dedistort_s", count="dedistorted")),
-                    (SlamEngine, "_rebuild_match_maps_at",
-                     timed("recenter_s", sync=True, count="recenters")),
-                    (Backend, "_match_chain_batch_one", chain_counted),
-                    (Backend, "_solve_and_correct", timed("solve_and_correct_s", sync=True)),
-                    (matchers, "optimize_scan_match", costs_kept)):
-                stack.enter_context(patched(owner, name, wrapper))
+            stack.enter_context(patched(SlamEngine, "run_log", engine_seen))
+            stack.enter_context(patched(matchers, "optimize_scan_match", costs_kept))
             stack.enter_context(contextlib.redirect_stdout(said))
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
@@ -800,51 +885,61 @@ def main() -> int:
             rc = cli_main(argv)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t
-            counts = read_counts()
+            counts, shapes = read_counts(), read_shapes()
         assert rc == 0, f"{what}: run returned {rc}"
         eng = seen["engine"]
+        diag, back = eng.diag, eng.backend
         traj = eng.trajectory_array()
         assert np.isfinite(traj).all() and traj.shape == (len(eng.store), 4)
         est, gt = match_by_time(traj, loop_log.gt_poses, loop_log.times)
         last = said.getvalue().strip().splitlines()[-2:]
+        front_steps = diag.scans_in - diag.scans_dropped_move
+        chain_corr = on_maps_of(shapes, correlation.kernel_version(), eng.bspec.fine_spec) \
+            if back.num_chain_dispatches else 0
         report = {
             "argv": [a if not a.startswith(tmp.name) else os.path.basename(a) for a in argv],
-            "scans_fed": eng.diag.scans_in, "kept": len(eng.store),
-            "dropped_by_move_gate": eng.diag.scans_dropped_move,
-            "dropped_by_score_gate": eng.diag.scans_dropped_gate,
-            "links": eng.backend.num_links,
-            "loop_closures": eng.backend.num_loop_closures,
-            "spa_solves": eng.backend.num_solves,
-            "chain_dispatches": eng.backend.num_chain_dispatches,
-            "recenters": seen["recenters"], "dedistorted_scans": seen["dedistorted"],
+            "scans_fed": diag.scans_in, "kept": len(eng.store),
+            "dropped_by_move_gate": diag.scans_dropped_move,
+            "dropped_by_score_gate": diag.scans_dropped_gate,
+            "links": back.num_links,
+            "loop_closures": back.num_loop_closures,
+            "spa_solves": back.num_solves,
+            "chain_dispatches": back.num_chain_dispatches,
+            "recenters": diag.recenters, "dedistorted_scans": diag.scans_dedistorted,
             "ate_rmse_m": ate_rmse(est, gt), "cli_said": last,
-            "launches": counts, "launches_in_chain_matches": dict(chain),
-            "seconds": seconds, "ms_per_scan_fed": seconds / eng.diag.scans_in * 1e3,
-            "frontend_s": eng.diag.match_time_s, "backend_s": eng.diag.backend_time_s,
-            **spent,
+            "fine_map": [eng.fspec.fine_spec.height, eng.fspec.fine_spec.width],
+            "chain_map": [eng.bspec.fine_spec.height, eng.bspec.fine_spec.width],
+            "pub_map": [eng.fspec.pub_spec.height, eng.fspec.pub_spec.width],
+            "launches": counts, "launches_by_shape": shapes_said(shapes),
+            "launches_in_chain_matches": {
+                "correlation": chain_corr, "bad_ray_count": back.num_chain_dispatches},
+            "seconds": seconds, "ms_per_scan_fed": seconds / diag.scans_in * 1e3,
+            "frontend_s": diag.match_time_s, "backend_s": diag.backend_time_s,
+            "dedistort_s": diag.dedistort_time_s, "recenter_s": diag.recenter_time_s,
+            "chain_match_s": back.chain_match_time_s,
+            "solve_and_correct_s": back.solve_time_s,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        assert counts["bad_ray_count"] == front_steps + back.num_chain_dispatches, counts
         if opt_costs:
             failed = int((torch.stack(opt_costs)
                           > eng.config.optimize_failed_cost).sum())
             report["optimizer_pose_taken"] = len(opt_costs) - failed
             report["fell_back_to_coarse_tier"] = failed
-        return eng, report
+        return eng, report, shapes
 
     # ---- phase 7 (leg 3): the real-robot profile through ``run`` ----
     with corr_kernel(2):
-        eng3, report3 = run_cli(
+        eng3, report3, shapes3 = run_cli(
             ["run", log_path, "--config", str(ROOT / "configs" / "real_robot.yaml")],
             "leg 3")
-    emit({"phase": "main_path_real_robot", "corr_kernel": 2,
-          "fine_map": [eng3.fspec.fine_spec.height, eng3.fspec.fine_spec.width],
-          "chain_map": [eng3.bspec.fine_spec.height, eng3.bspec.fine_spec.width],
-          "pub_map": [eng3.fspec.pub_spec.height, eng3.fspec.pub_spec.width],
-          **report3})
+    emit({"phase": LEG3, "corr_kernel": 2, **report3})
     assert eng3.config == rr_config and eng3.fspec.fine_spec == rr_fspec.fine_spec
-    c3, chain3 = report3["launches"], report3["launches_in_chain_matches"]
+    c3 = report3["launches"]
     assert c3["correlation_scores"] == 0, "leg 3 launched the first kernel"
     assert min(c3["correlation_scores_v2"], c3["ray_mark_image"], c3["bad_ray_count"]) > 0, c3
-    assert chain3["correlation_scores_v2"] > 0, "no chain match was proposed"
+    assert report3["chain_dispatches"] > 0, "no chain match was proposed"
+    assert report3["launches_in_chain_matches"]["correlation"] \
+        == 3 * report3["chain_dispatches"], report3["launches_in_chain_matches"]
     assert report3["recenters"] >= 3, report3["recenters"]
     fed = report3["scans_fed"] - report3["dropped_by_move_gate"]
     assert report3["dedistorted_scans"] == fed - 1, (report3["dedistorted_scans"], fed)
@@ -852,68 +947,66 @@ def main() -> int:
     assert report3["ate_rmse_m"] < ATE_BAR_M, report3["ate_rmse_m"]
     pub3 = eng3.get_pub_map()
     assert (pub3 == 100).any() and (pub3 == 0).any()
-    for key, e in entries.items():
-        if not e["name"].startswith("correlation_scores_v2"):
-            continue
-        front = key.startswith("rr_front")
-        total = (c3["correlation_scores_v2"] - chain3["correlation_scores_v2"]
-                 if front else chain3["correlation_scores_v2"])
-        assert total % 3 == 0 and total > 0, (key, total)
-        e["launches"] = total // 3
-        e["launches_from"] = "main_path_real_robot"
+    account(LEG3, shapes3, ctx_rr)
     del eng3, pub3
 
-    # ---- phase 8: second kernel's path against the first's, 60 scans ----
-    def replay_rr(version, n=60):
+    # ---- phase 8: the real-robot profile's paths against each other: second
+    # kernel, first kernel (60 scans) and the plain versions (40 scans, past
+    # the first recenter) ----
+    def replay_rr(version, device, n):
         with corr_kernel(version):
-            reset_counts()
-            eng = SlamEngine(rr_config, loop_laser)
-            kept_ids = [i for i in range(n) if eng.process(
-                loop_log.ranges[i], loop_log.odom[i], float(loop_log.times[i]))]
-            return kept_ids, eng.trajectory_array(), read_counts()
+            return replay(rr_config, loop_laser, corridor_log, None, device, n)
 
-    ids_2, traj_2, counts_2 = replay_rr(2)
-    ids_1, traj_1, counts_1 = replay_rr(1)
-    assert counts_2["correlation_scores"] == 0 < counts_2["correlation_scores_v2"]
-    assert counts_1["correlation_scores_v2"] == 0 < counts_1["correlation_scores"]
-    assert ids_2 == ids_1, (ids_2, ids_1)
-    d = np.abs(traj_2 - traj_1)
-    d[:, 3] = np.abs(np.arctan2(np.sin(d[:, 3]), np.cos(d[:, 3])))
-    emit({"phase": "kernel_2_vs_kernel_1_path", "scans": 60, "kept": len(ids_2),
-          "max_pos_diff_m": float(d[:, 1:3].max()),
-          "max_ang_diff_rad": float(d[:, 3].max())})
-    assert d[:, 1:3].max() <= POS_TOL and d[:, 3].max() <= ANG_TOL, d.max(0)
+    rr_2, rr_1 = replay_rr(2, None, 60), replay_rr(1, None, 60)
+    assert rr_2[2]["correlation_scores"] == 0 < rr_2[2]["correlation_scores_v2"]
+    assert rr_1[2]["correlation_scores_v2"] == 0 < rr_1[2]["correlation_scores"]
+    same_path("kernel_2_vs_kernel_1_path", rr_2, rr_1, scans=60)
+    same_path("kernel_vs_plain_path_real_robot", replay_rr(2, None, 40),
+              replay_rr(2, "cpu", 40), configuration="real_robot", scans=40)
 
     # ---- phase 9 (leg 4): the default configuration through ``run`` ----
     common = ["--max-points", "1152", "--world-size", "40"]
-    eng4, report4 = run_cli(["run", head_log(200), *common], "leg 4")
-    emit({"phase": "main_path_default_config",
-          "fine_map": [eng4.fspec.fine_spec.height, eng4.fspec.fine_spec.width],
-          "chain_map": [eng4.bspec.fine_spec.height, eng4.bspec.fine_spec.width],
-          **report4})
-    assert eng4.config.use_optimize_scan_match and eng4.config.match_map_window == 0
-    assert eng4.fspec.fine_spec.height == 4096, "not the full width"
+    eng4, report4, shapes4 = run_cli(["run", head_log(200), *common], "leg 4")
+    emit({"phase": LEG4, **report4})
+    assert eng4.config == df_config and eng4.config.use_optimize_scan_match \
+        and eng4.config.match_map_window == 0
+    assert eng4.fspec.fine_spec == df_fspec.fine_spec, "not the full width"
     assert report4["kept"] >= 150, report4["kept"]
     assert report4["optimizer_pose_taken"] + report4["fell_back_to_coarse_tier"] \
         == report4["scans_fed"]
     assert report4["launches"]["correlation_scores"] > 0
+    account(LEG4, shapes4, ctx_df)
     del eng4
-    # each remaining matcher option once on the card, 40 scans each
+    same_path("kernel_vs_plain_path_default_config",
+              replay(df_config, loop_laser, corridor_log, 40.0, None, 20),
+              replay(df_config, loop_laser, corridor_log, 40.0, "cpu", 20),
+              configuration="default", scans=20)
+    # each remaining matcher option once on the card, 40 scans each; their
+    # launches are held to the compared shapes, and listed under leg 4's
     for flag in ("use_fast_correlation_match", "use_running_range_scan_match"):
         cfg_path = os.path.join(tmp.name, f"{flag}.yaml")
         with open(cfg_path, "w") as f:
             yaml.safe_dump({flag: True}, f)
-        eng_s, report_s = run_cli(["run", head_log(40), "--config", cfg_path, *common],
-                                  flag)
+        eng_s, report_s, shapes_s = run_cli(
+            ["run", head_log(40), "--config", cfg_path, *common], flag)
         emit({"phase": f"short_leg_{flag}", **report_s})
         assert getattr(eng_s.config, flag) and report_s["kept"] >= 30, report_s["kept"]
+        account(f"short_leg_{flag}", shapes_s, ctx_df)
         del eng_s
     tmp.cleanup()
     torch.cuda.empty_cache()
 
-    for e in entries.values():
-        assert e["launches"] > 0, f"{e['name']}: not launched on a main path"
-    emit({"kernels": list(entries.values())})
+    # every kernel of every main path was launched on it, at a compared shape
+    listed = [e for e in entries.values() if e["launches"] > 0]
+    on_leg = {LEG1: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
+              LEG2: ("correlation_scores[chain",),
+              LEG3: ("correlation_scores_v2[", "ray_mark_image[", "bad_ray_count["),
+              LEG4: ("correlation_scores[", "ray_mark_image[", "bad_ray_count[")}
+    for leg, names in on_leg.items():
+        for name in names:
+            assert any(e["launches_from"] == leg and e["name"].startswith(name)
+                       for e in listed), f"{name}...]: no launch listed for {leg}"
+    emit({"kernels": listed})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ warm-up have no counterpart: candidate chains are matched in fixed chunks of
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import numpy as np
@@ -160,6 +161,8 @@ class Backend:
         self.num_links = 0
         self.num_chain_dispatches = 0     # batched chain-match calls
         self.num_solves = 0               # SPA solves
+        self.chain_match_time_s = 0.0     # host clock, each call ends in its fetch
+        self.solve_time_s = 0.0           # host clock, SPA solve + corrections
 
     # ---- device-call helpers ----
 
@@ -179,6 +182,7 @@ class Backend:
 
     def _match_chain_batch_one(self, chain_id_lists: list[list[int]],
                                scan_id: int, inits: np.ndarray):
+        t0 = time.perf_counter()
         st = self.store
         K = self.spec.max_chain_scans
         B = len(chain_id_lists)
@@ -203,6 +207,7 @@ class Backend:
         # ONE host fetch for all three results
         flat = torch.cat([bpose, bscore[:, None], bcov.reshape(B, 9)], dim=1) \
             .cpu().numpy().astype(np.float64)
+        self.chain_match_time_s += time.perf_counter() - t0
         return [(flat[i, :3].copy(), float(flat[i, 3]),
                  flat[i, 4:].reshape(3, 3).copy()) for i in range(B)]
 
@@ -308,12 +313,14 @@ class Backend:
 
     def _solve_and_correct(self):
         self.num_solves += 1
+        t0 = time.perf_counter()
         data = self.graph.as_solver_data(self.store.poses_array(),
                                          self.store.device)
         poses, _cost, _iters = solve_pose_graph(data)
         corrected = poses.cpu().numpy().astype(np.float64)[: self.graph.num_vertices]
         if self.on_corrections is not None:
             self.on_corrections(corrected)
+        self.solve_time_s += time.perf_counter() - t0
 
     def graph_info(self):
         """GetGraphInfo equivalent: (node xy array, edge endpoint pairs)."""

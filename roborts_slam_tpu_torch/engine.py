@@ -302,8 +302,12 @@ class EngineDiagnostics:
     scans_dropped_move: int = 0
     loop_closures: int = 0
     pub_clip_rebuilds: int = 0     # post-match growth events (_ensure_pub_covers)
+    scans_dedistorted: int = 0     # scans through the de-distortion ingest branch
+    recenters: int = 0             # rolling match-map window rebuilds
     match_time_s: float = 0.0
     backend_time_s: float = 0.0
+    dedistort_time_s: float = 0.0  # host clock, inside _dedistorted_points
+    recenter_time_s: float = 0.0   # host clock, inside _rebuild_match_maps_at
 
 
 class SlamEngine:
@@ -412,6 +416,7 @@ class SlamEngine:
         beam into the sweep-END frame (scans are stamped, and odometry
         paired, at time ``t`` = end of sweep), then gate and front-pack like
         ``ranges_to_packed``."""
+        t0 = _time.perf_counter()
         ranges = np.asarray(ranges, np.float32)
         # the reference also drops beams beyond range_threshold
         # (roborts_slam_node.cpp:295-307); mark them invalid pre-correction
@@ -420,7 +425,10 @@ class SlamEngine:
         op = np.stack([h[1] for h in self._odom_history])
         pts = dedistort_scan(gated, self.laser, t - self.laser.scan_time,
                              self.laser.scan_time, ot, op, reference="end")
-        return pack_points(pts[~np.isnan(pts[:, 0])], self.config.max_points)
+        packed = pack_points(pts[~np.isnan(pts[:, 0])], self.config.max_points)
+        self.diag.scans_dedistorted += 1
+        self.diag.dedistort_time_s += _time.perf_counter() - t0
+        return packed
 
     def process_points(self, points, mask, n_valid: int, odom: np.ndarray,
                        t: float) -> bool:
@@ -703,6 +711,7 @@ class SlamEngine:
         the stored scans within beam reach of the new window — exactly those
         (the JAX package pads the batch to size buckets only to bound
         recompilation). Keeps the host mirrors of both offsets in step."""
+        t0 = _time.perf_counter()
         cfg = self.config
         fs, cs = self.fspec.fine_spec, self.fspec.coarse_spec
         self._host_fine_off = np.asarray(fine_off, np.float64)
@@ -720,6 +729,8 @@ class SlamEngine:
             cs, fs, torch.as_tensor(coarse_off, **f32),
             torch.as_tensor(fine_off, **f32), *self.store.gather(ids),
             bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
+        self.diag.recenters += 1
+        self.diag.recenter_time_s += _time.perf_counter() - t0
 
     def finish(self):
         """Flush pending back-end work. NOT terminal: further process()

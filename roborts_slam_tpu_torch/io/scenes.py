@@ -2,8 +2,7 @@
 
 Own copy of the JAX package's ``io/scenes.py``. The map files are not part
 of this repository: they are the reference's ``maps/*.pgm|yaml``, looked for
-in ``REFERENCE_MAPS_DIR`` — the directory the environment variable
-``ROBORTS_SLAM_MAPS_DIR`` names, else ``maps`` under the working directory.
+in ``REFERENCE_MAPS_DIR``, the directory ``maps`` under the working directory.
 
 Laser models and odometry noise read off the world files:
 - willow: 1081 beams, 270.25°, 10 m (worlds/willow-pr2-5cm.world:8-17),
@@ -23,7 +22,7 @@ import numpy as np
 from ..models.scan import LaserModel
 from .pgm import GroundTruthMap, load_ground_truth_map
 
-REFERENCE_MAPS_DIR = os.environ.get("ROBORTS_SLAM_MAPS_DIR", "maps")
+REFERENCE_MAPS_DIR = "maps"
 
 
 @dataclasses.dataclass(frozen=True)

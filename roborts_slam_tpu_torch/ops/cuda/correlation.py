@@ -13,6 +13,7 @@ fallback: on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 
@@ -22,6 +23,8 @@ from . import build
 
 launches = 0      # launches of the first kernel (incremented only where it launches)
 launches_v2 = 0   # launches of the second kernel
+# the same launches by shape: (kernel version, B, A, S, N, H, W) -> count
+launch_shapes: collections.Counter = collections.Counter()
 
 _V2_ENV = "ROBORTS_CORR_KERNEL"
 _SHARED_BYTES = 48 * 1024     # dynamic shared memory a block gets without opt-in
@@ -55,11 +58,14 @@ def _launcher(source: str, symbol: str, n_int: int):
     return fn
 
 
+def _check_dims(probs, rx, xs):
+    if probs.dim() != 3 or rx.dim() != 3 or xs.dim() != 2:
+        raise ValueError("correlation_scores: probs (B,H,W), rx (B,A,S), xs (B,N)")
+
+
 def _checked_shapes(probs, rx, ry, svalid, xs, ys, divisor):
     """Raise unless the arguments are what the kernels take; returns
     (B, A, S, N, H, W)."""
-    if probs.dim() != 3 or rx.dim() != 3 or xs.dim() != 2:
-        raise ValueError("correlation_scores: probs (B,H,W), rx (B,A,S), xs (B,N)")
     B, H, W = probs.shape
     _, A, S = rx.shape
     N = xs.shape[1]
@@ -83,13 +89,14 @@ def correlation_scores(probs, rx, ry, svalid, xs, ys, default_prob: float,
 
     probs (B,H,W) f32, rx/ry (B,A,S) f32, svalid (B,S) bool, xs/ys (B,N)
     f32, divisor (B,) f32 — all contiguous and on one device."""
-    B, A, S, N, H, W = _checked_shapes(probs, rx, ry, svalid, xs, ys, divisor)
+    _check_dims(probs, rx, xs)
     if not probs.is_cuda:
         from ..correlative import correlation_scores_plain
 
         return correlation_scores_plain(probs, rx, ry, svalid, xs, ys,
                                         default_prob, divisor)
     global launches
+    B, A, S, N, H, W = _checked_shapes(probs, rx, ry, svalid, xs, ys, divisor)
     dev = probs.device
     scores = torch.empty((B, A, N, N), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -101,6 +108,7 @@ def correlation_scores(probs, rx, ry, svalid, xs, ys, default_prob: float,
     if err != 0:
         raise RuntimeError(f"correlation_scores: kernel launch failed (CUDA error {err})")
     launches += 1
+    launch_shapes[(1, B, A, S, N, H, W)] += 1
     return scores
 
 
@@ -110,13 +118,16 @@ def correlation_scores_v2(probs, rx, ry, svalid, xs, ys, default_prob: float,
     by the second kernel (``correlation_v2.cu``): the column of every
     (sample, kx) and the row offset of every (sample, ky) are formed once in
     shared memory and shared by the N*N candidates of the window."""
-    B, A, S, N, H, W = _checked_shapes(probs, rx, ry, svalid, xs, ys, divisor)
+    _check_dims(probs, rx, xs)
     if not probs.is_cuda:
         from ..correlative import correlation_scores_plain
 
         return correlation_scores_plain(probs, rx, ry, svalid, xs, ys,
                                         default_prob, divisor)
     global launches_v2
+    B, A, S, N, H, W = _checked_shapes(probs, rx, ry, svalid, xs, ys, divisor)
+    if S == 0:
+        raise ValueError("correlation_scores_v2: empty sample axis (S = 0)")
     if H * W >= 2 ** 31:
         raise ValueError(f"correlation_scores_v2: map {H}x{W} too large for "
                          f"32-bit row offsets")
@@ -136,4 +147,5 @@ def correlation_scores_v2(probs, rx, ry, svalid, xs, ys, default_prob: float,
         raise RuntimeError(
             f"correlation_scores_v2: kernel launch failed (CUDA error {err})")
     launches_v2 += 1
+    launch_shapes[(2, B, A, S, N, H, W)] += 1
     return scores

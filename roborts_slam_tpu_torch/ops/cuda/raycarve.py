@@ -8,6 +8,7 @@ on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -16,6 +17,9 @@ from . import build
 
 mark_launches = 0     # ray_mark_image kernel launches so far
 check_launches = 0    # bad_ray_count kernel launches so far
+# the same launches by shape: (beams, H, W) and (B, rays, H, W) -> count
+mark_shapes: collections.Counter = collections.Counter()
+check_shapes: collections.Counter = collections.Counter()
 
 _mark_fn = None
 _check_fn = None
@@ -67,6 +71,7 @@ def ray_mark_image(start, end, beam_mask, height: int, width: int):
     if err != 0:
         raise RuntimeError(f"ray_mark_image: kernel launch failed (CUDA error {err})")
     mark_launches += 1
+    mark_shapes[(P, height, width)] += 1
     return mark
 
 
@@ -101,4 +106,5 @@ def bad_ray_count(start, end, ray_ok, hits, passes, min_passthrough: float,
     if err != 0:
         raise RuntimeError(f"bad_ray_count: kernel launch failed (CUDA error {err})")
     check_launches += 1
+    check_shapes[(B, S, H, W)] += 1
     return out

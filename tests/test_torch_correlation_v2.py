@@ -109,8 +109,9 @@ def test_v2_wrapper_checks_its_arguments(scene):
                                     torch.zeros(1, 2, 3), torch.ones(1, 3, dtype=torch.bool),
                                     torch.zeros(1, 4), torch.zeros(1, 4), 0.3,
                                     torch.ones(1))
-    with pytest.raises(TypeError):
-        tcuda.correlation_scores_v2(
-            torch.as_tensor(probs)[None].double(), torch.zeros(1, 2, 3),
-            torch.zeros(1, 2, 3), torch.ones(1, 3, dtype=torch.bool),
-            torch.zeros(1, 4), torch.zeros(1, 4), 0.3, torch.ones(1))
+    # on CPU tensors nothing but the ranks is checked, as in the first wrapper
+    got = tcuda.correlation_scores_v2(
+        torch.as_tensor(probs)[None], torch.zeros(1, 2, 3),
+        torch.zeros(1, 2, 3), torch.ones(1, 3, dtype=torch.bool),
+        torch.zeros(1, 4), torch.zeros(1, 4), 0.3, torch.ones(1))
+    assert got.shape == (1, 2, 4, 4)

@@ -164,7 +164,7 @@ def test_pgm_and_scenes(tmp_path):
     for name, sc in tscenes.SCENES.items():
         other = jscenes.SCENES[name]
         assert dataclasses.asdict(sc.laser) == dataclasses.asdict(other.laser)
-        # the same files, looked for where ROBORTS_SLAM_MAPS_DIR says
+        # the same files, looked for in the port's own maps directory
         assert os.path.dirname(sc.map_yaml) == tscenes.REFERENCE_MAPS_DIR
         assert (os.path.basename(sc.map_yaml), sc.odom_error, sc.n_waypoints) == \
             (os.path.basename(other.map_yaml), other.odom_error, other.n_waypoints)
@@ -200,6 +200,7 @@ def test_engine_dedistorts_a_rotating_sweep_like_jax():
         kt.append(te.process(ranges, pose, 0.1 * k))
     assert kt == kj and sum(kt) >= 10
     assert len(calls) == 11                      # every scan after the first
+    assert te.diag.scans_dedistorted == 11 and te.diag.dedistort_time_s > 0
     np.testing.assert_allclose(np.stack(te.store._points), np.stack(je.store._points),
                                atol=1e-6)
     assert te.store._n_valid == je.store._n_valid

@@ -131,6 +131,8 @@ def test_corridor_walk_same_kept_scans_and_recenters(walk):
     steps_j = np.flatnonzero(np.abs(np.diff(oj[:, 0])) > 0)
     np.testing.assert_array_equal(steps_t, steps_j)
     assert len(steps_t) >= 3, steps_t                   # the window moved along
+    # the engine's own count of them, and the host time it charged to them
+    assert te.diag.recenters == len(steps_t) and te.diag.recenter_time_s > 0
     # the host mirrors of both offsets stayed in step with the device
     np.testing.assert_allclose(te._host_fine_off, ot[-1, :2], atol=1e-5)
     np.testing.assert_allclose(te._host_coarse_off, ot[-1, 2:], atol=1e-5)
