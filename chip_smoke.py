@@ -6,7 +6,12 @@
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version on the card at the shapes of every main
 path, drives the port's main paths at full width and shows that each launched
-its kernels, at compared shapes only (the wrappers count launches by shape):
+its kernels, at compared shapes only (the wrappers count launches by shape).
+The two correlation kernels are also held bit for bit against each other,
+against the plain version with the sums in their order and against a second
+launch, and timed beside one ``torch.gather`` call in turns: ``ms`` per wrapper
+call, ``device_us`` per launch, ``host_us`` per wrapper call, ``loses_by``.
+The main paths:
 
 - legs 1-2: the blocking per-scan SLAM loop under ``configs/simulation.yaml``
   (1152 points, 30 m world: a 3072² fine map, 2432² back-end chain maps) on
@@ -76,6 +81,54 @@ def time_ms(fn, reps: int = 20, warm: int = 5, inner: int = 10) -> float:
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b) / inner)
     return statistics.median(out)
+
+
+def device_us(fn, launches: int = 100) -> float:
+    """Device time of one ``fn`` call in microseconds: ``launches`` calls
+    captured into one CUDA graph, the graph replayed between two events (no
+    host work between the launches), median of 7 replays."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(7):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / launches * 1e3)
+    return statistics.median(out)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one ``fn`` call in microseconds: the host's clock round
+    ``calls`` back-to-back calls, warm, no synchronise inside the window."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def in_turns(measure, fns: dict, order) -> dict:
+    """``measure(fn)`` for every name of ``order`` in that order (a name may
+    come more than once); the mean per name. Two functions are compared
+    fairly only inside one run and in turns: a, b, b, a."""
+    seen = {name: [] for name in fns}
+    for name in order:
+        seen[name].append(measure(fns[name]))
+    return {name: statistics.mean(v) for name, v in seen.items()}
 
 
 def bound(bytes_moved: float, operations: float):
@@ -353,6 +406,58 @@ def main() -> int:
     # correlation kernels, (P, H, W) of the carve, (B, R, H, W) of the ray check
     compared_corr, compared_mark, compared_check = set(), set(), set()
 
+    def compare_kernels(what, args, want):
+        """Both correlation kernels on ``args`` against the plain version's
+        ``want`` (bar 1e-5) and, bit for bit, against each other, against the
+        plain version with the sums in the kernels' order, and against a
+        second launch of themselves. Returns ({name: max|Δ|}, max|K2 − K1|)."""
+        B, H, W = args[0].shape
+        _, A, S = args[1].shape
+        slice_len = correlation.launch_geometry(A, S, args[4].shape[1], H, W).slice_len
+        sliced = correlative.correlation_scores_sliced(*args, slice_len)
+        got = {k["name"]: k["fn"](*args) for k in (K1, K2)}
+        again = {k["name"]: k["fn"](*args) for k in (K1, K2)}
+        torch.cuda.synchronize()
+        errs = {}
+        for kname, g in got.items():
+            errs[kname] = float((g - want).abs().max())
+            assert errs[kname] <= 1e-5, f"{what}: {kname} vs plain {errs[kname]}"
+            assert bool(torch.isfinite(g).all()), f"{what}: {kname} not finite"
+            assert torch.equal(g, again[kname]), f"{what}: {kname} differs between two launches"
+            assert torch.equal(g, sliced), f"{what}: {kname} is not the sliced sum"
+        return errs, float((got[K2["name"]] - got[K1["name"]]).abs().max())
+
+    def second_kernel_paths(args):
+        """Which way the second kernel takes on ``args``, restated from its
+        geometry: the share of blocks that stage boxes at all (the others
+        span more cells than they have candidates and walk as the first
+        kernel does) and, in those, the share of valid samples whose box is
+        copied whole, with the mean cells of such a box."""
+        p_, rx, ry, sv, xs, ys, _, _ = args
+        H, W = p_.shape[-2:]
+        A, N = rx.shape[1], xs.shape[1]
+        g = correlation.launch_geometry(A, rx.shape[2], N, H, W)
+        span_x = torch.floor(xs[:, -1] - xs[:, 0]).clamp(min=1)
+        staging, boxed, cells, samples = 0, 0, 0, 0
+        for ky0 in range(0, N, g.v2_rows):
+            gys = ys[:, ky0:ky0 + g.v2_rows]
+            ncand = min(gys.shape[1] * N, g.v2_team * g.v2_slots)
+            stages = span_x * torch.floor(gys[:, -1] - gys[:, 0]).clamp(min=1) <= ncand
+            staging += int(stages.sum()) * A
+            box = correlation.box_layout(rx, ry, xs, gys, H, W, ncand)
+            use = (stages[:, None, None] & sv[:, None, :]).expand_as(box["boxed"])
+            whole = use & box["boxed"] & (box["height"] > 0)
+            samples += int(use.sum())
+            boxed += int(whole.sum())
+            cells += int((box["width"] * box["height"])[whole].sum())
+        blocks = p_.shape[0] * A * g.v2_groups
+        return {"rows_per_block": g.v2_rows, "lanes_per_team": g.v2_team,
+                "slots_per_lane": g.v2_slots, "blocks": blocks,
+                "blocks_staging_share": staging / blocks,
+                "samples_boxed_share": boxed / samples if samples else 0.0,
+                "mean_box_cells": cells / boxed if boxed else 0.0,
+                "candidates_per_block": g.v2_rows * N}
+
     def corr_entries(spec, tier_params, probs, offset, poses, points, n_valid,
                      key, listed, leg):
         """Both correlation kernels against the one plain version on one
@@ -374,14 +479,7 @@ def main() -> int:
                     float(spec.default_prob),
                     torch.full((B,), grid.divisor, **f32))
             want = correlative.correlation_scores_plain(*args)
-            got = {k["name"]: k["fn"](*args) for k in (K1, K2)}
-            torch.cuda.synchronize()
-            errs = {}
-            for kname, g in got.items():
-                errs[kname] = float((g - want).abs().max())
-                assert errs[kname] <= 1e-5, f"{key}:{tname}: {kname} vs plain {errs[kname]}"
-                assert bool(torch.isfinite(g).all())
-            k2_minus_k1 = float((got[K2["name"]] - got[K1["name"]]).abs().max())
+            errs, k2_minus_k1 = compare_kernels(f"{key}:{tname}", args, want)
             # yardstick: one torch.gather over precomputed indices (+ the
             # sum); timed here, called nowhere in the package
             H, W = probs.shape[-2:]
@@ -402,12 +500,24 @@ def main() -> int:
                            + 2 * B * N * 4 + B * 4 + B * A * N * N * 4)
             operations = B * A * n_samples * (N * N + 4 * N)
             bms, by = bound(bytes_moved, operations)
+            # the two kernels and the yardstick in turns, inside this run
+            calls = {k["name"]: (lambda k=k: k["fn"](*args)) for k in (K1, K2)}
+            calls["library"] = lib
+            turns = (K1["name"], K2["name"], "library", "library", K2["name"], K1["name"])
+            ms = in_turns(lambda f: time_ms(f, reps=10), calls, turns)
+            host = in_turns(host_us, calls, turns)
+            out = torch.empty_like(want)
+            dev_us = {k["name"]: device_us(correlation.prepared_launch(
+                k["version"], *args, out)) for k in (K1, K2)}
+            dev_us["library"] = device_us(lib)
             shared = {
                 "shape": [B, A, S, N, H, W],
                 "plain_ms": time_ms(
                     lambda: correlative.correlation_scores_plain(*args)),
                 "bound_ms": bms, "bound_by": by,
-                "library_ms": time_ms(lib),
+                "library_ms": ms["library"],
+                "library_device_us": dev_us["library"],
+                "library_host_us": host["library"],
                 "cells_touched": touched,
             }
             compared_corr.add((B, A, S, N, H, W))
@@ -416,7 +526,18 @@ def main() -> int:
                          "source": k["source"], "replaces": k["replaces"],
                          "launches": 0, "launches_from": leg,
                          "max_abs_err": errs[k["name"]],
-                         "ms": time_ms(lambda: k["fn"](*args)), **shared}
+                         "ms": ms[k["name"]], "device_us": dev_us[k["name"]],
+                         "host_us": host[k["name"]],
+                         "loses_by": ms[k["name"]] / ms["library"],
+                         "repeats_its_bits": True, **shared}
+                if k is K2:
+                    # what the staging of boxes costs or saves: the same
+                    # kernel with every candidate reading its own cell
+                    walked = torch.empty_like(want)
+                    entry["walk_device_us"] = device_us(correlation.prepared_launch(
+                        2, *args, walked, stage_boxes=False))
+                    assert torch.equal(walked, out), f"{key}:{tname}: walk differs"
+                    entry["box"] = second_kernel_paths(args)
                 both_kernels.append({**entry, "max_abs_k2_minus_k1": k2_minus_k1})
                 if k is listed:
                     entries[f"{key}:{tname}"] = entry
@@ -580,10 +701,29 @@ def main() -> int:
                             K1, LEG4, None)[0]
     ctx_df["chain_spec"] = BackendSpec.from_config(
         df_config, loop_laser.range_max, df_fspec.pub_spec).fine_spec
-    emit({"phase": "correlation_kernels", "timed": "CUDA events, 10 back-to-back "
-          "launches, warm, median of 20 runs, every function the same way",
+    emit({"phase": "correlation_kernels",
+          "timed": "ms: CUDA events round 10 back-to-back wrapper calls, warm, median "
+          "of 10 runs; host_us: host clock per wrapper call over 200 calls, no "
+          "synchronise inside; both for first kernel, second kernel and library "
+          "call in turns (k1, k2, library, library, k2, k1), the mean of the two; "
+          "device_us: 100 launches in one CUDA graph, replayed between two events, "
+          "median of 7 (the kernels through the bound C function, arguments "
+          "prepared once); loses_by = ms / library_ms",
           "entries": both_kernels})
-    assert max(e["max_abs_k2_minus_k1"] for e in both_kernels) <= 1e-5
+    # the same slices and the same order of sums: the two kernels agree bit for bit
+    assert max(e["max_abs_k2_minus_k1"] for e in both_kernels) == 0.0
+    main_rows = [e for e in both_kernels if e["shape"][0] == 1 and (
+        (e["name"].startswith(K2["name"] + "[")) == e["name"].split("[")[1].startswith("rr_"))]
+    first_front = {e["name"].split(":")[1].rstrip("]"): e["device_us"] for e in both_kernels
+                   if e["name"].startswith(K1["name"] + "[front_b1:")}
+    emit({"phase": "correlation_vs_library", "rows": len(main_rows),
+          "slower_than_library": [
+              {"name": e["name"], "loses_by": e["loses_by"], "ms": e["ms"],
+               "library_ms": e["library_ms"], "device_us": e["device_us"],
+               "host_us": e["host_us"]} for e in main_rows if e["loses_by"] > 1.0],
+          "first_kernel_front_device_us": first_front,
+          "super_fine_no_slower_than_coarse":
+              first_front["super_fine"] <= first_front["coarse"]})
 
     # edge cases, kernel against plain version (not timed): rays that leave
     # the map on the low side (negative DDA numerators: the kernels' floor
@@ -637,6 +777,59 @@ def main() -> int:
             expect = fs.default_prob * int(g.svalid.sum()) / g.divisor
             assert abs(edge[f"{tag}_{name}"] - expect) < 1e-5, (name, expect)
         assert edge[f"{tag}_empty_scan"] == 0.0
+    # what the sliced design opens, on synthetic windows from a seed: each
+    # case holds both kernels against the plain version (1e-5) and, bit for
+    # bit, against each other, the sliced sum and a second launch
+    def window_case(seed, B, A, S, N, H, W, step, center, n_valid=None,
+                    prefix=True, ordered=True):
+        """A (B, H, W) map of random values, samples within 30 cells of the
+        sensor, an N x N window of ``step`` cells round ``center``."""
+        rng = np.random.default_rng(seed)
+        probs_ = torch.as_tensor(rng.random((B, H, W), dtype=np.float32))
+        rx_ = torch.as_tensor(rng.uniform(-30, 30, (B, A, S)).astype(np.float32))
+        ry_ = torch.as_tensor(rng.uniform(-30, 30, (B, A, S)).astype(np.float32))
+        n_valid = S if n_valid is None else n_valid
+        sv_ = (torch.arange(S)[None].expand(B, S) < n_valid) if prefix \
+            else torch.as_tensor(rng.random((B, S)) < 0.5)
+        c = torch.as_tensor(np.asarray(center, np.float32)
+                            + rng.uniform(-0.5, 0.5, (B, 2)).astype(np.float32))
+        steps = torch.arange(N, dtype=torch.float32) * step
+        if not ordered:
+            steps = steps[torch.as_tensor(rng.permutation(N))]
+        half = (N - 1) * step * 0.5
+        tensors = (probs_, rx_, ry_, sv_, c[:, 0:1] - half + steps,
+                   c[:, 1:2] - half + steps)
+        return (*[t.contiguous().to(dev) for t in tensors], 0.37,
+                torch.full((B,), float(max(n_valid, 1)), **f32))
+
+    design_cases = {
+        # S not a multiple of the slice length, one valid sample
+        "s_prime_one_valid": (1, 1, 2, 37, 3, 64, 64, 1.0, (30, 30), 1),
+        "one_sample": (2, 1, 2, 1, 3, 64, 64, 1.0, (30, 30)),
+        "one_candidate": (3, 1, 2, 19, 1, 64, 64, 1.0, (30, 30)),
+        # boxes that straddle the map's low and high edges, and lie wholly outside
+        "low_edges_step_2": (4, 1, 2, 40, 11, 200, 220, 2.0, (20, 25)),
+        "high_edges_step_0.8": (5, 1, 2, 40, 11, 200, 220, 0.8, (190, 200)),
+        "low_x_high_y_step_1": (6, 2, 2, 80, 3, 200, 220, 1.0, (3, 198)),
+        "wholly_outside": (7, 1, 2, 40, 11, 200, 220, 2.0, (900, -700)),
+        # the real-robot profile's steps: several candidates on one cell
+        "step_0.8": (8, 1, 2, 40, 11, 200, 220, 0.8, (100, 110)),
+        "step_0.4": (9, 1, 2, 80, 3, 200, 220, 0.4, (100, 110)),
+        # a window of more candidates than a block has threads
+        "window_33x33": (10, 1, 1, 17, 33, 100, 100, 1.0, (50, 50)),
+        "window_200x200": (11, 1, 1, 9, 200, 300, 300, 1.0, (150, 150)),
+        # slices longer than eight samples, a mask that is no prefix,
+        # offsets in no order
+        "5000_samples": (12, 1, 2, 5000, 3, 64, 64, 1.0, (30, 30)),
+        "mask_not_a_prefix": (13, 2, 2, 45, 11, 200, 220, 0.8, (100, 110), None, False),
+        "offsets_unordered": (14, 2, 2, 40, 9, 200, 220, 0.8, (15, 205), None, True, False),
+    }
+    for name, spec_ in design_cases.items():
+        args = window_case(*spec_)
+        errs, k2_minus_k1 = compare_kernels(name, args,
+                                            correlative.correlation_scores_plain(*args))
+        assert k2_minus_k1 == 0.0, (name, k2_minus_k1)
+        edge[f"design_{name}"] = max(errs.values())
     torch.cuda.synchronize()
     emit({"phase": "kernels_checked", "edge_cases": edge, "entries": len(entries),
           "correlation_shapes": sorted(compared_corr),
