@@ -37,7 +37,7 @@
 // warp for good and ran one after the other (60 us); a box of more cells
 // than candidates (21 x 21 cells for 121 reads at a step of two) doubled
 // the time. And the staging itself does not pay at these sizes: with
-// `stage` = 0 the same launch takes 3.6 us where it takes 5.3 and 5.0
+// `stage` = 0 the same launch takes 4.2 us where it takes 5.3 and 5.5
 // where it takes 8.4, because a box of 3 or 9 cells saves at most two loads
 // of eleven and costs a copy, a warp barrier and a second read. It stays
 // because shared loads are what this kernel is for; chip_smoke.py prints
