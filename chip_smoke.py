@@ -590,7 +590,17 @@ def main() -> int:
             bms, by = bound(ps.height * ps.width * 4 + end.numel() * 4
                             + beam_mask.numel() + 8, ray_cells * 12)
             P = int(end.shape[0])
+            image = torch.empty((ps.height, ps.width), dtype=torch.int32, device=dev)
+            walk = lambda: raycarve._mark_launcher()(
+                start.data_ptr(), end.data_ptr(), beam_mask.data_ptr(), P, ps.height,
+                ps.width, image.data_ptr(), correlation._raw_stream(0))
+            carve_call = lambda: raycarve.ray_mark_image(
+                start, end, beam_mask, ps.height, ps.width)
             entries[f"{key}:carve"] = {
+                # the fill of the image and the walk in one graph, the walk alone
+                "device_us": device_us(lambda: (image.zero_(), walk())),
+                "walk_device_us": device_us(walk),
+                "host_us": host_us(carve_call), "bare_host_us": host_us(walk),
                 "name": f"ray_mark_image[{key}]", "route": "cuda",
                 "source": "roborts_slam_tpu_torch/ops/cuda/raycarve.cu",
                 "replaces": "roborts_slam_tpu/ops/pallas/raycarve.py:57",
@@ -629,7 +639,16 @@ def main() -> int:
             assert torch.equal(bad, raycast.bad_rays_plain(*far_args)) \
                 and int(bad.sum()) > 0, (key, B, bad)
             R = int(ok.shape[1])
+            count = torch.empty((B,), dtype=torch.int32, device=dev)
+            walk = lambda: raycarve._check_launcher()(
+                *[t.data_ptr() for t in args[:5]], B, R, ps.height, ps.width,
+                float(args[5]), float(args[6]), int(args[7]), count.data_ptr(),
+                correlation._raw_stream(0))
             entries[f"{key}:check_b{B}"] = {
+                "device_us": device_us(lambda: (count.zero_(), walk())),
+                "walk_device_us": device_us(walk),
+                "host_us": host_us(lambda: raycarve.bad_ray_count(*args)),
+                "bare_host_us": host_us(walk),
                 "name": f"bad_ray_count[{key}_b{B}]", "route": "cuda",
                 "source": "roborts_slam_tpu_torch/ops/cuda/raycarve.cu",
                 "replaces": "roborts_slam_tpu/ops/pallas/raycarve.py:164",
