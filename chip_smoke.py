@@ -58,6 +58,29 @@ POS_TOL, ANG_TOL = 2e-3, 2e-3  # trajectory agreement bar (m, rad)
 LOOP_SEED = 20            # seed of the simulated corridor-loop log
 LOOP_LAPS = 1.15          # laps of the 66.3 m centre line driven in leg 3
 ATE_BAR_M = 0.3           # leg 3's bar on the ATE against the simulated truth
+# What this script read of the carve and ray-check kernels before their
+# redesign (a warp per beam behind torch's fill with two 64-bit divisions a
+# visit; a warp per ray in rounds of 32 steps with a vote after each, behind a
+# zeroed count), on an NVIDIA H100 80GB HBM3 at 700.00 W. device_us: output
+# zeroed and walk in one graph; walk_device_us: the walk alone. Printed beside
+# this run's figures, never mixed with them.
+EARLIER_RAY_KERNELS = {
+    "ray_mark_image[pub_640x640]": {"ms": 0.0496, "device_us": 5.22, "walk_device_us": 3.74,
+                                    "host_us": 45.61, "bare_host_us": 8.18},
+    "ray_mark_image[rr_pub_1024x1024]": {"ms": 0.0290, "device_us": 5.83, "walk_device_us": 3.53,
+                                         "host_us": 47.10, "bare_host_us": 5.83},
+    "ray_mark_image[default_pub_896x896]": {"ms": 0.0310, "device_us": 5.48,
+                                            "walk_device_us": 3.59, "host_us": 30.65,
+                                            "bare_host_us": 5.17},
+    "bad_ray_count[pub_640x640_b1]": {"ms": 0.0600, "device_us": 7.22, "walk_device_us": 6.27,
+                                      "host_us": 55.17, "bare_host_us": 12.21},
+    "bad_ray_count[rr_pub_1024x1024_b1]": {"ms": 0.0535, "device_us": 7.24,
+                                           "walk_device_us": 6.28, "host_us": 51.02,
+                                           "bare_host_us": 11.15},
+    "bad_ray_count[default_pub_896x896_b1]": {"ms": 0.0343, "device_us": 7.15,
+                                              "walk_device_us": 6.23, "host_us": 36.08,
+                                              "bare_host_us": 8.34},
+}
 
 
 def emit(obj):
@@ -546,14 +569,11 @@ def main() -> int:
     def check_args(cfg, ps, pub, points, pmask, n_valid, poses):
         """Arguments of ``bad_ray_count`` as ``map_feedback_penalty`` forms
         them for ``poses`` (B, 3)."""
-        sidx, svalid = raycast._sample_beams(points, pmask, n_valid,
-                                             cfg.map_check_point_num)
         pose_map = world_to_map_pose(pub.offset, ps.inv_res, poses)
-        e = raster._cell_round(transform_points(pose_map, points[sidx] * ps.inv_res))
-        s = raster._cell_round(pose_map[..., :2])
-        ok = (svalid & ~torch.all(e == s[:, None, :], dim=-1)).contiguous()
-        thr_d2 = int(np.floor(cfg.map_check_bound_tolerance ** 2)) + 1
-        return (s.contiguous(), e.contiguous(), ok, pub.hits, pub.passes,
+        s, e, ok, thr_d2 = raycast.check_rays(
+            ps, pose_map, points, pmask, n_valid, cfg.map_check_point_num,
+            cfg.map_check_bound_tolerance)
+        return (s.contiguous(), e.contiguous(), ok.contiguous(), pub.hits, pub.passes,
                 cfg.map_min_passthrough, cfg.map_occu_threshold, thr_d2)
 
     Q = 12                 # the scan every comparison matches or carves
@@ -579,35 +599,45 @@ def main() -> int:
         if carve:
             start, end, beam_mask = (t.contiguous() for t in raster._scan_cells(
                 ps.inv_res, pub.offset, points, pmask, pose_q))
-            got = raycarve.ray_mark_image(start, end, beam_mask, ps.height, ps.width)
+            carve_call = lambda: raycarve.ray_mark_image(
+                start, end, beam_mask, ps.height, ps.width)
+            got, again = carve_call(), carve_call()
             want = raster.mark_image_plain(start, end, beam_mask, ps.height, ps.width)
             torch.cuda.synchronize()
             differing = int((got != want).sum())
             assert differing == 0, f"ray_mark_image[{key}]: {differing} cells differ"
+            assert torch.equal(got, again), f"ray_mark_image[{key}] differs between two launches"
             assert int((got == 2).sum()) > 0 and int((got == 1).sum()) > 0
             delta = (end - start[None]).abs().amax(-1).clamp(min=1)
             ray_cells = int((delta + 1)[beam_mask].sum())
             bms, by = bound(ps.height * ps.width * 4 + end.numel() * 4
                             + beam_mask.numel() + 8, ray_cells * 12)
             P = int(end.shape[0])
-            image = torch.empty((ps.height, ps.width), dtype=torch.int32, device=dev)
-            walk = lambda: raycarve._mark_launcher()(
-                start.data_ptr(), end.data_ptr(), beam_mask.data_ptr(), P, ps.height,
-                ps.width, image.data_ptr(), correlation._raw_stream(0))
-            carve_call = lambda: raycarve.ray_mark_image(
-                start, end, beam_mask, ps.height, ps.width)
+            # every design through the bound C function, in turns, forwards
+            # and backwards (``ray_mark_image`` launches the first)
+            designs = raycarve.MARK_DESIGNS
+            assert designs["beam_major"] == raycarve.MARK_DESIGN
+            images = {d: torch.full_like(got, 7) for d in designs}
+            bare = {d: raycarve.prepared_mark_launch(start, end, beam_mask, images[d], k)
+                    for d, k in designs.items()}
+            dev_us = in_turns(device_us, bare, tuple(designs) + tuple(designs)[::-1])
+            torch.cuda.synchronize()
+            for d, image in images.items():
+                assert torch.equal(image, want), f"ray_mark_image[{key}]: {d} differs"
             entries[f"{key}:carve"] = {
-                # the fill of the image and the walk in one graph, the walk alone
-                "device_us": device_us(lambda: (image.zero_(), walk())),
-                "walk_device_us": device_us(walk),
-                "host_us": host_us(carve_call), "bare_host_us": host_us(walk),
                 "name": f"ray_mark_image[{key}]", "route": "cuda",
                 "source": "roborts_slam_tpu_torch/ops/cuda/raycarve.cu",
                 "replaces": "roborts_slam_tpu/ops/pallas/raycarve.py:57",
                 "shape": [P, ps.height, ps.width], "launches": 0, "launches_from": leg,
                 "max_abs_err": float(differing),
-                "ms": time_ms(lambda: raycarve.ray_mark_image(
-                    start, end, beam_mask, ps.height, ps.width)),
+                "ms": time_ms(carve_call),
+                "device_us": dev_us["beam_major"],
+                "tile_major_device_us": dev_us["tile_major"],
+                "beam_major_memset_device_us": dev_us["beam_major_memset"],
+                "beam_major_look_device_us": dev_us["beam_major_look"],
+                "host_us": host_us(carve_call),
+                "bare_host_us": host_us(bare["beam_major"]),
+                "repeats_its_bits": True,
                 "plain_ms": time_ms(lambda: raster.mark_image_plain(
                     start, end, beam_mask, ps.height, ps.width)),
                 "bound_ms": bms, "bound_by": by, "library_ms": None,
@@ -624,10 +654,12 @@ def main() -> int:
             poses = start_poses(scans, B)[1]
             args = check_args(cfg, ps, pub, points, pmask, n_valid, poses)
             s, e, ok = args[:3]
-            got = raycarve.bad_ray_count(*args)
+            check_call = lambda: raycarve.bad_ray_count(*args)
+            got, again = check_call(), check_call()
             want = raycast.bad_rays_plain(*args)
             torch.cuda.synchronize()
             assert torch.equal(got, want), f"bad_ray_count[{key}_b{B}]: {got} vs {want}"
+            assert torch.equal(got, again), f"bad_ray_count[{key}_b{B}] differs between two launches"
             n = (e - s[:, None, :]).abs().amax(-1).clamp(min=1)
             visited = int((n + 1)[ok].sum())
             bms, by = bound(visited * 8 + e.numel() * 4 + s.numel() * 4 + ok.numel()
@@ -639,16 +671,17 @@ def main() -> int:
             assert torch.equal(bad, raycast.bad_rays_plain(*far_args)) \
                 and int(bad.sum()) > 0, (key, B, bad)
             R = int(ok.shape[1])
-            count = torch.empty((B,), dtype=torch.int32, device=dev)
-            walk = lambda: raycarve._check_launcher()(
-                *[t.data_ptr() for t in args[:5]], B, R, ps.height, ps.width,
-                float(args[5]), float(args[6]), int(args[7]), count.data_ptr(),
-                correlation._raw_stream(0))
+            # with the ticket reduction (shipped) and with a zeroed count and
+            # atomic adds, through the bound C function, in turns
+            counts = {d: torch.full_like(got, 7) for d in ("ticket", "memset_atomic")}
+            bare = {d: raycarve.prepared_check_launch(*args, counts[d], ticket=d == "ticket")
+                    for d in counts}
+            dev_us = in_turns(device_us, bare,
+                              ("ticket", "memset_atomic", "memset_atomic", "ticket"))
+            torch.cuda.synchronize()
+            for d, count in counts.items():
+                assert torch.equal(count, want), f"bad_ray_count[{key}_b{B}]: {d} {count}"
             entries[f"{key}:check_b{B}"] = {
-                "device_us": device_us(lambda: (count.zero_(), walk())),
-                "walk_device_us": device_us(walk),
-                "host_us": host_us(lambda: raycarve.bad_ray_count(*args)),
-                "bare_host_us": host_us(walk),
                 "name": f"bad_ray_count[{key}_b{B}]", "route": "cuda",
                 "source": "roborts_slam_tpu_torch/ops/cuda/raycarve.cu",
                 "replaces": "roborts_slam_tpu/ops/pallas/raycarve.py:164",
@@ -656,10 +689,15 @@ def main() -> int:
                 "launches": 0, "launches_from": leg,
                 "max_abs_err": float((got - want).abs().max()),
                 "counts": got.tolist(), "counts_displaced": bad.tolist(),
-                "ms": time_ms(lambda: raycarve.bad_ray_count(*args)),
+                "ms": time_ms(check_call),
+                "device_us": dev_us["ticket"],
+                "memset_atomic_device_us": dev_us["memset_atomic"],
+                "host_us": host_us(check_call),
+                "bare_host_us": host_us(bare["ticket"]),
+                "repeats_its_bits": True,
                 "plain_ms": time_ms(lambda: raycast.bad_rays_plain(*args)),
                 "bound_ms": bms, "bound_by": by, "library_ms": None,
-                "cells_on_rays": visited,
+                "rays": int(ok.sum()), "cells_on_rays": visited,
             }
             counted_as[f"{key}:check_b{B}"] = ("check", B, R, ps.height, ps.width)
             compared_check.add((B, R, ps.height, ps.width))
@@ -729,6 +767,24 @@ def main() -> int:
           "median of 7 (the kernels through the bound C function, arguments "
           "prepared once); loses_by = ms / library_ms",
           "entries": both_kernels})
+    emit({"phase": "ray_kernels",
+          "timed": "ms: CUDA events round 10 back-to-back wrapper calls, warm, median "
+          "of 20 runs; host_us: host clock per wrapper call over 200 calls, no "
+          "synchronise inside (bare_host_us: the same for the bound C function, "
+          "arguments prepared once); device_us: 100 launches in one CUDA graph, "
+          "replayed between two events, median of 7, through the bound C function, "
+          "the designs in turns, forwards and backwards, the mean of the two. Carve: "
+          "device_us is the design ray_mark_image launches (a fill kernel and a warp "
+          "per beam that starts while it runs), tile_major_device_us a block per "
+          "32 x 32 tile in one launch, beam_major_memset_device_us the same walk "
+          "behind cudaMemsetAsync, beam_major_look_device_us 16 lanes per beam and a "
+          "load before each atomic behind cudaMemsetAsync. Check: device_us is one "
+          "launch with one packed atomic per block, memset_atomic_device_us a zeroed "
+          "count and atomic adds",
+          "carve_designs": raycarve.MARK_DESIGNS, "carve_shipped": raycarve.MARK_DESIGN,
+          "earlier": EARLIER_RAY_KERNELS,
+          "entries": [e for e in entries.values()
+                      if e["name"].startswith(("ray_mark_image[", "bad_ray_count["))]})
     # the same slices and the same order of sums: the two kernels agree bit for bit
     assert max(e["max_abs_k2_minus_k1"] for e in both_kernels) == 0.0
     main_rows = [e for e in both_kernels if e["shape"][0] == 1 and (
@@ -768,6 +824,67 @@ def main() -> int:
     got, want = raycarve.bad_ray_count(*args), raycast.bad_rays_plain(*args)
     assert torch.equal(got, want), (got, want)
     edge["check_counts"] = got.tolist()
+    # more of the same on small made-up scans, every carve design and both
+    # reductions of the check: beams of length 0 and 1, every beam masked, a
+    # sensor outside the map whose rays cross it, rays that leave on the high
+    # side, rays longer than the check's unrolled 256 steps (a 4096-cell map),
+    # rays the kernels walk in 64 bits, 8 poses, maps that are not square
+    def fan(seed, beams, sensor, reach):
+        rng = np.random.default_rng(seed)
+        ang, r = rng.uniform(0, 2 * np.pi, beams), rng.uniform(0, reach, beams)
+        cells = np.floor(np.stack([sensor[0] + r * np.cos(ang),
+                                   sensor[1] + r * np.sin(ang)], -1) + 0.5)
+        return (torch.as_tensor(sensor, dtype=torch.int32, device=dev),
+                torch.as_tensor(cells.astype(np.int32), device=dev),
+                torch.as_tensor(rng.random(beams) < 0.9, device=dev))
+
+    i32 = lambda v: torch.as_tensor(v, dtype=torch.int32, device=dev)
+    ones = lambda k: torch.ones(k, dtype=torch.bool, device=dev)
+    st, en, bm = fan(4, 300, (47, 61), 70)
+    small = {
+        "length_0_and_1": (i32([10, 12]), i32([[10, 12], [11, 12], [10, 11], [9, 13]]),
+                           ones(4), 40, 48),
+        "every_beam_masked": (st, en, torch.zeros_like(bm), 96, 128),
+        "sensor_outside_rays_cross": (*fan(6, 300, (-25, -10), 160), 96, 128),
+        "rays_leave_high_side": (*fan(7, 300, (120, 90), 80), 96, 128),
+        "n_above_256_on_4096": (i32([5, 17]), i32([[4090, 30], [300, 0], [4095, 17], [700, 39]]),
+                                ones(4), 40, 4096),
+        "needs_64_bits": (i32([-40000, 5]), i32([[60, 30], [100, -20], [-39990, 8]]),
+                          ones(3), 40, 128),
+        "non_square_non_multiple": (*fan(5, 300, (33, 20), 90), 70, 101),
+    }
+    rng = np.random.default_rng(8)
+    for name, (st, en, bm, H, W) in small.items():
+        want = raster.mark_image_plain(st, en, bm, H, W)
+        got = raycarve.ray_mark_image(st, en, bm, H, W)
+        assert torch.equal(got, want), f"ray_mark_image[{name}] differs"
+        assert torch.equal(got, raycarve.ray_mark_image(st, en, bm, H, W)), name
+        for d, k in raycarve.MARK_DESIGNS.items():
+            image = torch.full_like(want, 7)
+            raycarve.prepared_mark_launch(st, en, bm, image, k)()
+            assert torch.equal(image, want), f"ray_mark_image[{name}]: {d} differs"
+        edge[f"carve_{name}_cells"] = int((want > 0).sum())
+        # the same rays from 8 poses a few cells apart, on random count planes
+        B = 8
+        passes = torch.as_tensor(rng.integers(0, 6, (H, W)).astype(np.float32), device=dev)
+        hits = torch.as_tensor((rng.random((H, W)) * rng.integers(0, 2, (H, W)))
+                               .astype(np.float32), device=dev) * passes
+        shift = i32(rng.integers(-3, 4, (B, 2)))
+        args = ((st[None] + shift).contiguous(), (en[None] + shift[:, None]).contiguous(),
+                bm[None].repeat(B, 1).contiguous(), hits, passes, 2.0, 0.4, 2)
+        want = raycast.bad_rays_plain(*args)
+        got = raycarve.bad_ray_count(*args)
+        assert torch.equal(got, want), (name, got, want)
+        assert torch.equal(got, raycarve.bad_ray_count(*args)), name
+        for ticket in (True, False):
+            count = torch.full_like(want, 7)
+            raycarve.prepared_check_launch(*args, count, ticket=ticket)()
+            assert torch.equal(count, want), (name, ticket, count, want)
+        edge[f"check_{name}_b8"] = want.tolist()
+    assert edge["carve_every_beam_masked_cells"] == 0
+    assert edge["check_every_beam_masked_b8"] == [0] * 8
+    assert edge["carve_needs_64_bits_cells"] > 0 and sum(edge["check_n_above_256_on_4096_b8"]) > 0
+    assert min(edge[f"carve_{n}_cells"] for n in small if n != "every_beam_masked") > 0
     fs = fspec.fine_spec
     far = torch.as_tensor([500.0, -400.0, 0.1], **f32)
     # a pose near the map's low corner: part of every window falls off the

@@ -27,7 +27,7 @@ import os
 
 import torch
 
-from . import build
+from . import build, launch
 
 launches = 0      # launches of the first kernel (incremented only where it launches)
 launches_v2 = 0   # launches of the second kernel
@@ -173,15 +173,6 @@ class _Plan:
     count_key: tuple          # key into ``launch_shapes``
 
 
-def _stream_pointer(index: int) -> int:
-    return torch.cuda.current_stream(index).cuda_stream
-
-
-# the current stream's pointer; without building a Stream object where this
-# torch can give it so
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _stream_pointer)
-
-
 def _new_plan(key, version, tensors) -> _Plan:
     """Validate one combination of shapes, dtypes and devices, and compute
     what its launches need."""
@@ -242,12 +233,7 @@ def _run(version, probs, rx, ry, svalid, xs, ys, default_prob, divisor):
     args = (probs.data_ptr(), rx.data_ptr(), ry.data_ptr(), svalid.data_ptr(),
             xs.data_ptr(), ys.data_ptr(), divisor.data_ptr(), scores.data_ptr(),
             plan.geometry_ptr, default_prob)
-    index = plan.index
-    if torch.cuda.current_device() == index:
-        err = plan.fn(*args, _raw_stream(index))
-    else:
-        with torch.cuda.device(index):
-            err = plan.fn(*args, _raw_stream(index))
+    err = launch.call(plan.fn, plan.index, *args)
     if err != 0:
         raise RuntimeError(
             f"correlation kernel {plan.count_key}: launch failed (CUDA error {err})")
@@ -318,12 +304,12 @@ def prepared_launch(version: int, probs, rx, ry, svalid, xs, ys,
             ctypes.addressof(geometry), float(default_prob))
     fn, index = plan.fn, plan.index
 
-    def launch(_keep=geometry):
-        err = fn(*args, _raw_stream(index))
+    def bare(_keep=geometry):
+        err = fn(*args, launch.raw_stream(index))
         if err != 0:
             raise RuntimeError(f"correlation kernel: launch failed (CUDA error {err})")
 
-    return launch
+    return bare
 
 
 def box_layout(rx, ry, xs, ys, H: int, W: int, limit: int):

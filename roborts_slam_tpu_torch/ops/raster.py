@@ -154,12 +154,14 @@ def _ray_cells(spec: CountMapSpec, start_cell, end_cells, beam_mask):
 
 
 def _ray_cells_hw(S: int, height: int, width: int, start_cell, end_cells,
-                  beam_mask):
+                  beam_mask, t0: int = 0):
+    """``_ray_cells`` for steps ``t0 .. t0 + S - 1`` on a ``height`` x
+    ``width`` map."""
     start_cell = start_cell.to(torch.int64)
     end_cells = end_cells.to(torch.int64)
     delta = end_cells - start_cell[None, :]                       # (P,2) int
     nsteps = torch.clamp(torch.amax(torch.abs(delta), dim=-1), min=1)  # (P,) chebyshev
-    t = torch.arange(S, dtype=torch.int64, device=delta.device)[None, :]  # (1,S)
+    t = torch.arange(t0, t0 + S, dtype=torch.int64, device=delta.device)[None, :]  # (1,S)
     # exact integer DDA: cell(t) = floor(start + delta*t/n + 1/2)
     #                            = (2n*start + 2*delta*t + n) // (2n)
     # (floor division; bit-identical to the CUDA carve kernel)
@@ -185,16 +187,18 @@ def mark_image_plain(start, end, beam_mask, height: int, width: int):
     ``ops.cuda.raycarve.ray_mark_image``: the scatter DDA over
     (P, max ray length + 1) candidate cells."""
     delta = end.to(torch.int64) - start.to(torch.int64)[None, :]
-    # static ray-length bound; sized from the data so that every in-map cell
-    # of every ray is visited whatever the map's size
+    # steps up to the longest ray's endpoint, sized from the data so that
+    # every in-map cell of every ray is visited wherever the sensor lies;
+    # 1024 steps at a time, which bounds the memory of a far-away sensor
     S = int(torch.clamp(torch.amax(torch.abs(delta)), min=1)) + 1 if end.numel() else 1
-    S = min(S, height + width + 2)
-    flat, markv = _ray_cells_hw(S, height, width, start, end, beam_mask)
     img = torch.zeros((height * width,), dtype=torch.int32, device=start.device)
-    # dropped entries (flat == -1) carry mark 0: send them to cell 0
-    img.scatter_reduce_(0, torch.clamp(flat, min=0).reshape(-1),
-                        markv.reshape(-1).to(torch.int32), "amax",
-                        include_self=True)
+    for t0 in range(0, S, 1024):
+        flat, markv = _ray_cells_hw(min(1024, S - t0), height, width, start, end,
+                                    beam_mask, t0)
+        # dropped entries (flat == -1) carry mark 0: send them to cell 0
+        img.scatter_reduce_(0, torch.clamp(flat, min=0).reshape(-1),
+                            markv.reshape(-1).to(torch.int32), "amax",
+                            include_self=True)
     return img.reshape(height, width)
 
 

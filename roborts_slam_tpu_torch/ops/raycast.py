@@ -38,6 +38,26 @@ def _sample_beams(points, mask, n_valid: int, check_point_num: int):
     return sidx, svalid
 
 
+def check_rays(spec: CountMapSpec, pose_map, points, mask, n_valid: int,
+               check_point_num: int, bound_tolerance: float):
+    """The rays ``map_feedback_penalty`` checks for poses in map
+    coordinates ``pose_map (...,3)`` (``world_to_map_pose``):
+    sensor cells ``start (...,2)``, endpoint cells ``end (...,S,2)`` of the
+    subsampled beams, ``ray_ok (...,S)`` (a sampled valid beam whose endpoint
+    lies inside the map and off the sensor's cell) and the integer
+    squared-distance threshold ``thr_d2``."""
+    sidx, svalid = _sample_beams(points, mask, n_valid, check_point_num)
+    pts_map = transform_points(pose_map, points[sidx] * spec.inv_res)  # (...,S,2)
+    end = _cell_round(pts_map)
+    start = _cell_round(pose_map[..., :2])
+    same = torch.all(end == start[..., None, :], dim=-1)
+    end_in = ((end[..., 0] > 0) & (end[..., 0] < spec.width)
+              & (end[..., 1] > 0) & (end[..., 1] < spec.height))
+    # d > tol  <=>  d^2 >= floor(tol^2) + 1  (d^2 integer)
+    thr_d2 = int(math.floor(bound_tolerance * bound_tolerance)) + 1
+    return start, end, svalid & ~same & end_in, thr_d2
+
+
 def map_feedback_penalty(spec: CountMapSpec, cmap: CountMap,
                          points, mask, n_valid: int, pose_world,
                          check_point_num: int, bound_tolerance: float,
@@ -52,25 +72,13 @@ def map_feedback_penalty(spec: CountMapSpec, cmap: CountMap,
     > bound_tolerance cells from the beam endpoint; coefficient =
     max(1 + 2*gain − gain·Σbad, 0.1) (occu_grid_map.h:388-389).
     """
-    inv_res = spec.inv_res
-    pose_map = world_to_map_pose(cmap.offset, inv_res, pose_world)
+    pose_map = world_to_map_pose(cmap.offset, spec.inv_res, pose_world)
     in_map = ((pose_map[..., 0] > 0) & (pose_map[..., 0] < spec.width)
               & (pose_map[..., 1] > 0) & (pose_map[..., 1] < spec.height))
-
-    sidx, svalid = _sample_beams(points, mask, n_valid, check_point_num)
-    pts_map = transform_points(pose_map, points[sidx] * inv_res)  # (...,S,2)
-    end = _cell_round(pts_map)
-    start = _cell_round(pose_map[..., :2])
-    same = torch.all(end == start[..., None, :], dim=-1)
-    end_in = ((end[..., 0] > 0) & (end[..., 0] < spec.width)
-              & (end[..., 1] > 0) & (end[..., 1] < spec.height))
-    ray_ok = svalid & ~same & end_in
-
-    # d > tol  <=>  d^2 >= floor(tol^2) + 1  (d^2 integer)
-    thr_d2 = int(math.floor(bound_tolerance * bound_tolerance)) + 1
-
+    start, end, ray_ok, thr_d2 = check_rays(spec, pose_map, points, mask, n_valid,
+                                            check_point_num, bound_tolerance)
     lead = pose_world.shape[:-1]
-    S = sidx.shape[0]
+    S = ray_ok.shape[-1]
     bad_total = bad_ray_count(
         start.reshape(-1, 2).contiguous(), end.reshape(-1, S, 2).contiguous(),
         ray_ok.reshape(-1, S).contiguous(), cmap.hits, cmap.passes,

@@ -33,7 +33,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from roborts_slam_tpu_torch.ops import correlative          # noqa: E402
-from roborts_slam_tpu_torch.ops.cuda import build, correlation  # noqa: E402
+from roborts_slam_tpu_torch.ops.cuda import build, correlation, launch  # noqa: E402
 
 TIERS = {   # name: (angles, samples, window side, step in cells, valid samples)
     "simulation_coarse": (101, 200, 9, 10.0, 200),
@@ -170,7 +170,7 @@ def main() -> int:
         "plan lookup and contiguity checks": lambda: correlation._plan(1, *tensors),
         "output allocation": lambda: args[1].new_empty((1, 21, 3, 3)),
         "current_device": torch.cuda.current_device,
-        "stream pointer": lambda: correlation._raw_stream(0),
+        "stream pointer": lambda: launch.raw_stream(0),
         "stream pointer through a Stream object":
             lambda: torch.cuda.current_stream(dev).cuda_stream,
         "eight data_ptr": lambda: [t.data_ptr() for t in tensors] + [args[0].data_ptr()],
