@@ -310,14 +310,24 @@ __global__ void __launch_bounds__(kBeamThreads) ray_mark_beams_kernel(
 {
     const int p = (blockIdx.x * kBeamThreads + threadIdx.x) / TEAM;
     const int lane = threadIdx.x % TEAM;
-    if (p >= P) return;
-    // the beam's words are loaded together, whether it is walked or not
-    const int sx = start[0], sy = start[1];
-    const int ex = end[2 * p], ey = end[2 * p + 1];
-    // t = 0 is the sensor's cell for every beam: the first beam of a run of
-    // valid beams writes it for the run
-    const bool first = p == 0 || !beam_mask[p - 1];
-    if (!beam_mask[p]) return;
+    bool walked = p < P;
+    int sx = 0, sy = 0, ex = 0, ey = 0;
+    bool first = false;
+    if (walked) {
+        // the beam's words are loaded together, whether it is walked or not
+        sx = start[0], sy = start[1];
+        ex = end[2 * p], ey = end[2 * p + 1];
+        // t = 0 is the sensor's cell for every beam: the first beam of a run
+        // of valid beams writes it for the run
+        first = p == 0 || !beam_mask[p - 1];
+        walked = beam_mask[p];
+    }
+    if (!walked) {
+        // a thread with no beam waits too: this kernel must not end before
+        // the fill has, or what follows on the stream could see the image unzeroed
+        if (EARLY) cudaGridDependencySynchronize();
+        return;
+    }
     if (is_narrow(sx, sy, ex, ey))
         beam_visits<int, TEAM, LOOK, EARLY>(sx, sy, ex, ey, lane, first, H, W, mark);
     else
