@@ -881,6 +881,15 @@ def main() -> int:
             raycarve.prepared_check_launch(*args, count, ticket=ticket)()
             assert torch.equal(count, want), (name, ticket, count, want)
         edge[f"check_{name}_b8"] = want.tolist()
+    # the shipped carve's walk starts while its fill still runs: with nothing
+    # to walk it must still not end before the fill, so that what follows on
+    # the stream (no synchronise in between) sees a large image zeroed
+    big = torch.full((4096, 4096), 7, dtype=torch.int32, device=dev)
+    st, en, bm = small["every_beam_masked"][:3]
+    raycarve.prepared_mark_launch(st, en, bm, big)()
+    edge["carve_every_beam_masked_4096_nonzero_cells"] = int((big != 0).sum())
+    assert edge["carve_every_beam_masked_4096_nonzero_cells"] == 0
+    del big
     assert edge["carve_every_beam_masked_cells"] == 0
     assert edge["check_every_beam_masked_b8"] == [0] * 8
     assert edge["carve_needs_64_bits_cells"] > 0 and sum(edge["check_n_above_256_on_4096_b8"]) > 0
