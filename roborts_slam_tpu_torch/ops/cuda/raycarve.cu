@@ -58,7 +58,7 @@
 //     nothing overlapped.
 //   3, beam-major with a load first: cudaMemsetAsync, 16 lanes a beam, and a
 //     load before each atomic that skips it where the cell already holds as
-//     much. The load makes every visit wait for the L2; the atomic alone
+//     much: a visit then waits for the L2's answer, which the atomic alone
 //     does not.
 //
 // bad_ray_count: number of rays per pose that visit, for t in [0, n], an
@@ -87,13 +87,13 @@
 // the designs in turns (chip_smoke.py on real scans of 1152 beams and 43-70
 // thousand ray cells, pub maps of 640^2 / 1024^2 / 896^2; the kernels before
 // this design in brackets).
-//   ray_mark_image, design 0: 4.2 / 4.2 / 4.1  (fill + walk: 5.2 / 5.8 / 5.5)
-//                   design 1: 6.9 / 7.9 / 6.4
-//                   design 2: 4.4 / 4.8 / 4.8
-//                   design 3: 8.7 / 8.9 / 8.5
-//   Of design 0 the fill alone takes 1.4 / 2.1 / 1.8 and with every beam
-//   masked 2.2 / 2.9 / 2.5; of design 1 the zeroed tiles alone 1.6 / 2.4 / 2.1
-//   and with every beam masked 2.8 / 3.9 / 3.7, so the 400-1024 blocks pay
+//   ray_mark_image, design 0: 4.2 / 4.3 / 4.0  (fill + walk: 5.2 / 5.8 / 5.5)
+//                   design 1: 6.8 / 7.8 / 6.3
+//                   design 2: 4.4 / 4.7 / 4.8
+//                   design 3: 8.3 / 8.5 / 7.8
+//   Of design 0 the fill alone takes 1.5 / 2.2 / 1.9 and with every beam
+//   masked 2.3 / 3.0 / 2.7; of design 1 the zeroed tiles alone 1.6 / 2.4 / 2.2
+//   and with every beam masked 2.9 / 3.9 / 3.7, so the 400-1024 blocks pay
 //   1.2-1.6 us to read the beam list, and the walk, on few SMs, as much as
 //   design 0's whole call (scripts/torch_ray_kernels.py, made-up scans of
 //   52-80 thousand ray cells). Also built and measured slower than design 2
@@ -101,8 +101,8 @@
 //   one cooperative launch; fill blocks and walking blocks in one launch, the
 //   walkers waiting for a count of finished fill blocks; tiles shared by the
 //   blocks of a thread block cluster through distributed shared memory.
-//   bad_ray_count, B = 1 and 4, 100 rays a pose: 3.5-3.7  (zeroing + walk:
-//   7.2); with cudaMemsetAsync + atomicAdd 5.9-6.1.
+//   bad_ray_count, B = 1 and 4, 100 rays a pose: 3.5-3.6  (zeroing + walk:
+//   7.2); with cudaMemsetAsync + atomicAdd 5.7-5.9.
 //   ptxas: walk 40 registers, fill 12, tiles 58 (2 KB shared), check 72; no
 //   spills.
 
