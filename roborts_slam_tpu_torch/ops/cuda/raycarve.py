@@ -146,8 +146,8 @@ def _tickets_for(dev, poses: int):
     time."""
     held = _tickets.get(dev.index)
     if held is None or held.numel() < poses:
-        held = _tickets[dev.index] = torch.zeros((max(poses, 64),), dtype=torch.int64,
-                                                 device=dev)
+        held = _tickets[dev.index] = torch.empty((max(poses, 64),), dtype=torch.int64,
+                                                 device=dev).zero_()
     return held
 
 
