@@ -25,7 +25,17 @@ The main paths:
 - leg 4: ``run`` with no ``--config`` (the default ``SlamConfig()``: the
   optimize matcher first) over the first 200 scans of that log, and two
   40-scan legs with the branch-and-bound coarse stage and with the windowed
-  (running-range) match.
+  (running-range) match;
+- leg 5: the online engine, ``run loop.rslg --config configs/real_robot.yaml
+  --async --out-map ... --checkpoint ...`` (first correlation kernel): the log
+  written as ``.rslg`` and read through the native decode worker, the back end
+  on its worker thread, ``on_pose`` sampling the pose stream at 100 Hz of log
+  time and ``on_map_snapshot`` every 50 kept scans.
+
+Two more phases hold the online engine's other entry points against leg 3's
+run: ``checkpoint_resume`` (half the log through the API, saved, loaded into a
+new engine, the other half fed) and ``bag_vs_npz`` (the first 120 scans as a
+bz2-chunked ``.bag`` and as ``.npz`` through ``run``).
 
 Under each of the three configurations the first scans are also replayed on
 the card and through the plain versions on the CPU, and must agree. Each
@@ -58,6 +68,8 @@ POS_TOL, ANG_TOL = 2e-3, 2e-3  # trajectory agreement bar (m, rad)
 LOOP_SEED = 20            # seed of the simulated corridor-loop log
 LOOP_LAPS = 1.15          # laps of the 66.3 m centre line driven in leg 3
 ATE_BAR_M = 0.3           # leg 3's bar on the ATE against the simulated truth
+STREAM_DT = 0.01          # leg 5 samples the pose stream at 100 Hz of log time
+SNAPSHOT_EVERY = 50       # leg 5's map snapshot hook: every 50 kept scans
 # What this script read of the carve and ray-check kernels before their
 # redesign (a warp per beam behind torch's fill with two 64-bit divisions a
 # visit; a warp per ray in rounds of 32 steps with a vote after each, behind a
@@ -83,7 +95,14 @@ EARLIER_RAY_KERNELS = {
 }
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also says when it ended (``at_s``,
+    seconds since the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -251,21 +270,29 @@ def corr_kernel(version: int):
 
 
 def profile_frontend(SlamEngine, config, laser, ranges, odom, times, world_size,
-                     out_dir, tag, n=30):
+                     out_dir, tag, n=30, synchronous_backend=True):
     """Optional (``--profile [DIR]``): trace the per-scan loop over the first
     scans with torch.profiler, print the device-busy share and the heaviest
     device kernels, and write the table to ``DIR/profile_<tag>.txt`` (default
-    ``out/``)."""
+    ``out/``). With ``synchronous_backend=False`` the back end runs on its
+    worker thread, which is joined (``finish``) inside the traced window."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine = SlamEngine(config, laser, world_size=world_size)
-    for i in range(5):
-        engine.process(ranges[i], odom[i], float(times[i]))
-    torch.cuda.synchronize()
+    def new_engine():
+        eng = SlamEngine(config, laser, world_size=world_size,
+                         synchronous_backend=synchronous_backend)
+        for i in range(5):
+            eng.process(ranges[i], odom[i], float(times[i]))
+        eng.finish()
+        torch.cuda.synchronize()
+        return eng
+
+    engine = new_engine()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(5, n):
             engine.process(ranges[i], odom[i], float(times[i]))
+        engine.finish()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     avg = prof.key_averages()
@@ -276,28 +303,47 @@ def profile_frontend(SlamEngine, config, laser, ranges, odom, times, world_size,
     kernels = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = sorted(kernels, key=dev_time, reverse=True)
     busy_s = sum(dev_time(e) for e in kernels) * 1e-6
+    # the same from the trace's device intervals: the time during which at
+    # least one kernel, copy or fill ran, an interval recorded twice (or two
+    # that overlap) counted once
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            start = e.start_ns() if hasattr(e, "start_ns") else e.start_us() * 1000
+            spans.append((start, start + e.duration_ns() if hasattr(e, "duration_ns")
+                          else start + e.duration_us() * 1000, e.name()))
+    union_ns, end = 0, -1
+    for a, b, _ in sorted(spans):
+        if b > end:
+            union_ns += b - max(a, end)
+            end = b
+    union_s = union_ns * 1e-9
     out = ROOT / out_dir
     out.mkdir(parents=True, exist_ok=True)
     (out / f"profile_{tag}.txt").write_text(avg.table(
         sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=80))
     # the profiler slows the host side several times over, so the share is
     # also given against the unprofiled per-scan wall time of the same scans
-    engine2 = SlamEngine(config, laser, world_size=world_size)
-    for i in range(5):
-        engine2.process(ranges[i], odom[i], float(times[i]))
-    torch.cuda.synchronize()
+    engine2 = new_engine()
     t0 = time.perf_counter()
     for i in range(5, n):
         engine2.process(ranges[i], odom[i], float(times[i]))
+    engine2.finish()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     emit({"phase": "profile", "configuration": tag, "scans": n - 5,
+          "synchronous_backend": synchronous_backend,
+          "backend_seconds": engine2.diag.backend_time_s,
+          "backend_batch_max": engine2.diag.backend_batch_max,
           "profiled_wall_seconds": wall,
           "unprofiled_wall_seconds": plain_wall,
           "device_busy_seconds": busy_s,
           "device_launches": sum(e.count for e in kernels),
           "device_busy_share_of_unprofiled_wall": busy_s / plain_wall,
           "device_idle_share_of_unprofiled_wall": 1.0 - busy_s / plain_wall,
+          "device_intervals": len(spans), "device_intervals_distinct": len(set(spans)),
+          "device_union_busy_seconds": union_s,
+          "device_union_idle_share_of_unprofiled_wall": 1.0 - union_s / plain_wall,
           "top_device_kernels": [
               {"name": e.key[:70], "calls": e.count, "device_ms": dev_time(e) * 1e-3}
               for e in rows[:12] if dev_time(e) > 0]})
@@ -412,6 +458,7 @@ def main() -> int:
     loop_scans = scan_set(loop_log.ranges, loop_laser, loop_log.odom)
     LEG1, LEG2 = "main_path", "main_path_back_end"
     LEG3, LEG4 = "main_path_real_robot", "main_path_default_config"
+    LEG5 = "main_path_async"
 
     # ---- phase 3: every kernel against its plain version, on the card, at
     # the shapes of every main path ----
@@ -1160,6 +1207,13 @@ def main() -> int:
                              loop_log.odom, loop_log.times, None, out_dir, "real_robot")
         profile_frontend(SlamEngine, df_config, loop_laser, loop_log.ranges,
                          loop_log.odom, loop_log.times, 40.0, out_dir, "default")
+        # leg 5's engine against the blocking one over the same 300 scans
+        # (chain matches, no closure yet), first kernel
+        for sync in (True, False):
+            profile_frontend(SlamEngine, rr_config, loop_laser, loop_log.ranges,
+                             loop_log.odom, loop_log.times, None, out_dir,
+                             f"real_robot_{'sync' if sync else 'async'}_300", n=305,
+                             synchronous_backend=sync)
 
     # ---- phase 5: kernel path against plain path, end to end ----
     def replay(cfg, scan_laser, scan_log, world_size, device, n):
@@ -1189,18 +1243,26 @@ def main() -> int:
               replay(config, laser, willow_log, 30.0, "cpu", 20),
               configuration="simulation", scans=20)
 
-    def run_cli(argv, what):
+    def run_cli(argv, what, setup=None):
         """``python -m roborts_slam_tpu_torch`` with ``argv``, in-process.
         Returns the engine it built, a report (kernel launch counts of the
         run, set to 0 just before and read just after, and where the host's
-        time went by the engine's own diagnostics) and the counts by shape."""
+        time went by the engine's own diagnostics) and the counts by shape.
+        ``setup(engine)`` runs before the replay starts (the hooks)."""
         seen = {"engine": None}
         opt_costs = []
 
         def engine_seen(fn):
-            def inner(self, *a, **kw):
-                seen["engine"] = self
-                return fn(self, *a, **kw)
+            def inner(self, source, *a, **kw):
+                seen.update(engine=self, entry=f"{fn.__name__}({type(source).__name__})")
+                if setup is not None:
+                    setup(self)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(self, source, *a, **kw)
+                torch.cuda.synchronize()
+                seen["replay_s"] = time.perf_counter() - t
+                return out
             return inner
 
         def costs_kept(fn):
@@ -1214,6 +1276,7 @@ def main() -> int:
         said = io.StringIO()
         with contextlib.ExitStack() as stack:
             stack.enter_context(patched(SlamEngine, "run_log", engine_seen))
+            stack.enter_context(patched(SlamEngine, "run_stream", engine_seen))
             stack.enter_context(patched(matchers, "optimize_scan_match", costs_kept))
             stack.enter_context(contextlib.redirect_stdout(said))
             reset_counts()
@@ -1251,8 +1314,16 @@ def main() -> int:
             "launches": counts, "launches_by_shape": shapes_said(shapes),
             "launches_in_chain_matches": {
                 "correlation": chain_corr, "bad_ray_count": back.num_chain_dispatches},
+            "entry": seen["entry"], "synchronous_backend": eng.synchronous_backend,
             "seconds": seconds, "ms_per_scan_fed": seconds / diag.scans_in * 1e3,
+            # the replay alone (first scan to finish(), the worker joined):
+            # no log loading, engine set-up or output writing
+            "replay_s": seen["replay_s"],
+            "replay_ms_per_scan_fed": seen["replay_s"] / diag.scans_in * 1e3,
             "frontend_s": diag.match_time_s, "backend_s": diag.backend_time_s,
+            "backend_batches": diag.backend_batches,
+            "backend_batch_max": diag.backend_batch_max,
+            "stages": eng.timers.as_dict(),
             "dedistort_s": diag.dedistort_time_s, "recenter_s": diag.recenter_time_s,
             "chain_match_s": back.chain_match_time_s,
             "solve_and_correct_s": back.solve_time_s,
@@ -1286,6 +1357,7 @@ def main() -> int:
     pub3 = eng3.get_pub_map()
     assert (pub3 == 100).any() and (pub3 == 0).any()
     account(LEG3, shapes3, ctx_rr)
+    traj3 = eng3.trajectory_array()
     del eng3, pub3
 
     # ---- phase 8: the real-robot profile's paths against each other: second
@@ -1331,6 +1403,185 @@ def main() -> int:
         assert getattr(eng_s.config, flag) and report_s["kept"] >= 30, report_s["kept"]
         account(f"short_leg_{flag}", shapes_s, ctx_df)
         del eng_s
+
+    # ---- phase 10 (leg 5): the online engine through ``run --async`` ----
+    from roborts_slam_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from roborts_slam_tpu_torch.io.native_log import write_rslg
+    from roborts_slam_tpu_torch.io.rosbag import bag_to_scan_log, write_bag
+
+    rr_yaml = str(ROOT / "configs" / "real_robot.yaml")
+    rslg_path = os.path.join(tmp.name, "corridor_loop.rslg")
+    write_rslg(loop_log, rslg_path)
+    out_map = os.path.join(tmp.name, "map")
+    end_ckpt = os.path.join(tmp.name, "end.npz")
+    hooks = {"poses": 0, "snapshots": [], "samples": [], "t0": None}
+
+    def set_hooks(eng):
+        """``on_pose`` samples the pose stream at 100 Hz of log time up to
+        each kept scan's stamp; ``on_map_snapshot`` every 50 kept scans."""
+        def on_pose(t, pose):
+            hooks["poses"] += 1
+            if hooks["t0"] is None:
+                hooks["t0"] = t
+            while True:
+                ts = hooks["t0"] + STREAM_DT * len(hooks["samples"])
+                if ts > t + 1e-9:
+                    break
+                hooks["samples"].append(eng.pose_at(ts))
+
+        def on_map_snapshot(n, grid):
+            hooks["snapshots"].append(np.unique(grid).tolist())
+
+        eng.on_pose, eng.on_map_snapshot = on_pose, on_map_snapshot
+        eng.map_snapshot_every = SNAPSHOT_EVERY
+
+    # the carve and ray-check entries of the real-robot shapes, and the first
+    # kernel's correlation entries there, listed again for leg 5's launches
+    for key in [k for k in entries if k.startswith("rr_")]:
+        if entries[key]["name"].startswith(K2["name"] + "["):
+            continue
+        entries[f"{key}@{LEG5}"] = {**entries[key], "launches": 0, "launches_from": LEG5,
+                                    "name": entries[key]["name"][:-1] + f"@{LEG5}]"}
+        counted_as[f"{key}@{LEG5}"] = counted_as[key]
+        if key in optional:
+            optional.add(f"{key}@{LEG5}")
+    for e in both_kernels:
+        if e["name"].startswith(K1["name"] + "[rr_"):
+            key = e["name"][len(K1["name"]) + 1:-1] + f"@{LEG5}"
+            entries[key] = {k: v for k, v in e.items() if k != "max_abs_k2_minus_k1"}
+            entries[key].update(launches=0, launches_from=LEG5)
+            counted_as[key] = ("corr", 1, *e["shape"])
+            if "chain_b" in key:      # the worker's batch sizes vary with its drains
+                optional.add(key)
+    with corr_kernel(1):
+        eng5, report5, shapes5 = run_cli(
+            ["run", rslg_path, "--config", rr_yaml, "--async", "--out-map", out_map,
+             "--checkpoint", end_ckpt], "leg 5", setup=set_hooks)
+    samples = np.asarray(hooks["samples"])
+    t_kept = eng5.trajectory_array()[:, 0]
+    report5.update(
+        pose_stream={"hz": 1 / STREAM_DT, "samples": len(samples),
+                     "span_s": float(t_kept[-1] - t_kept[0]),
+                     "all_finite": bool(np.isfinite(samples).all())},
+        on_pose_calls=hooks["poses"], map_snapshots=len(hooks["snapshots"]),
+        map_snapshot_values=sorted({v for vs in hooks["snapshots"] for v in vs}),
+        leg3_ate_rmse_m=report3["ate_rmse_m"],
+        leg3_replay_ms_per_scan_fed=report3["replay_ms_per_scan_fed"],
+        worker_share_of_replay=report5["backend_s"] / report5["replay_s"])
+    emit({"phase": LEG5, "corr_kernel": 1, **report5})
+    assert report5["entry"] == "run_stream(NativeScanStream)", report5["entry"]
+    assert not eng5.synchronous_backend and eng5._backend_thread is None
+    assert eng5.config == rr_config and eng5.fspec.fine_spec == rr_fspec.fine_spec
+    c5 = report5["launches"]
+    assert c5["correlation_scores_v2"] == 0, "leg 5 launched the second kernel"
+    assert min(c5["correlation_scores"], c5["ray_mark_image"], c5["bad_ray_count"]) > 0, c5
+    assert report5["chain_dispatches"] > 0 and report5["launches_in_chain_matches"][
+        "correlation"] == 3 * report5["chain_dispatches"], report5["launches_in_chain_matches"]
+    assert report5["loop_closures"] >= 1, "leg 5 closed no loop"
+    assert report5["ate_rmse_m"] <= max(2 * report3["ate_rmse_m"], 0.15), report5["ate_rmse_m"]
+    kept5 = report5["kept"]
+    assert hooks["poses"] == kept5 and len(hooks["snapshots"]) == kept5 // SNAPSHOT_EVERY
+    assert set(report5["map_snapshot_values"]) <= {-1, 0, 100}
+    assert len(samples) == int(np.floor((t_kept[-1] - t_kept[0]) / STREAM_DT + 1e-6)) + 1
+    assert report5["pose_stream"]["all_finite"]
+    # after finish(): trajectory, host store, device mirror and the worker's
+    # pub snapshot agree
+    assert np.array_equal(eng5.trajectory_array()[:, 1:], eng5.store.poses_array())
+    n5 = len(eng5.store)
+    dpts, dmsk, dposes = eng5.store.device_arrays()
+    assert np.array_equal(dpts[:n5].cpu().numpy(), np.stack(eng5.store._points))
+    assert np.array_equal(dmsk[:n5].cpu().numpy(), np.stack(eng5.store._masks))
+    assert np.array_equal(dposes[:n5].cpu().numpy(),
+                          eng5.store.poses_array().astype(np.float32))
+    pub_spec5, hits5, passes5, off5 = eng5.store.pub_map_arrays()
+    live = eng5.state.pub
+    assert hits5.data_ptr() != live.hits.data_ptr() and passes5.data_ptr() != live.passes.data_ptr()
+    assert torch.equal(hits5, live.hits) and torch.equal(passes5, live.passes) \
+        and torch.equal(off5, live.offset) and pub_spec5 == eng5.fspec.pub_spec
+    with open(out_map + ".pgm", "rb") as f:
+        assert f.read(2) == b"P5"
+    back = load_checkpoint(end_ckpt)
+    assert np.array_equal(back.store.poses_array(), eng5.store.poses_array())
+    assert torch.equal(back.state.pub.hits, live.hits)
+    del back, eng5, live, hits5, passes5, dpts, dmsk, dposes
+    ctx_rr1 = {**ctx_rr, "listed": K1}       # the real-robot shapes, first kernel
+    account(LEG5, shapes5, ctx_rr1)
+
+    # ---- phase 11: checkpoint and resume against leg 3's straight run ----
+    half = len(loop_log) // 2
+    reset_counts()
+    t1 = time.perf_counter()
+    with corr_kernel(2):
+        part = SlamEngine(rr_config, loop_laser)
+        for i in range(half):
+            part.process(loop_log.ranges[i], loop_log.odom[i], float(loop_log.times[i]))
+        ckpt = os.path.join(tmp.name, "half.npz")
+        t2 = time.perf_counter()
+        save_checkpoint(part, ckpt)
+        save_s = time.perf_counter() - t2
+        t2 = time.perf_counter()
+        resumed = load_checkpoint(ckpt)
+        load_s = time.perf_counter() - t2
+        assert len(resumed.store) == len(part.store) and resumed.device == part.device
+        del part
+        for i in range(half, len(loop_log)):
+            resumed.process(loop_log.ranges[i], loop_log.odom[i], float(loop_log.times[i]))
+        resumed.finish()
+    torch.cuda.synchronize()
+    shapes_cr = read_shapes()
+    traj_cr = resumed.trajectory_array()
+    same_ids = traj_cr.shape == traj3.shape and np.array_equal(traj_cr[:, 0], traj3[:, 0])
+    if same_ids:
+        d = np.abs(traj_cr - traj3)
+        d[:, 3] = np.abs(np.arctan2(np.sin(d[:, 3]), np.cos(d[:, 3])))
+    else:       # where the kept ids part: the first stamp kept by one run only
+        d = np.full((1, 4), np.inf)
+        parted = sorted(set(traj_cr[:, 0]) ^ set(traj3[:, 0]))[:1]
+    emit({"phase": "checkpoint_resume", "corr_kernel": 2, "scans_before_save": half,
+          "same_kept_ids_as_leg_3": bool(same_ids),
+          **({} if same_ids else {"kept_by_one_run_only_from_t": parted}),
+          "scans_after_load": len(loop_log) - half, "kept": len(traj_cr),
+          "loop_closures": resumed.backend.num_loop_closures,
+          "max_pos_diff_m": float(d[:, 1:3].max()), "max_ang_diff_rad": float(d[:, 3].max()),
+          "save_s": save_s, "load_s": load_s, "checkpoint_bytes": os.path.getsize(ckpt),
+          "seconds": time.perf_counter() - t1, "launches": read_counts(),
+          "launches_by_shape": shapes_said(shapes_cr)})
+    assert same_ids, "the resumed run kept other scans than leg 3"
+    assert d[:, 1:3].max() <= POS_TOL and d[:, 3].max() <= ANG_TOL, d.max(0)
+    del resumed
+    account("checkpoint_resume", shapes_cr, ctx_rr)
+
+    # ---- phase 12: the first 120 scans as a bz2-chunked .bag and as .npz ----
+    bag_path = os.path.join(tmp.name, "corridor_loop.bag")
+    n_bag = 120
+    write_bag(bag_path, ScanLog(loop_log.ranges[:n_bag], loop_log.odom[:n_bag],
+                                loop_log.times[:n_bag], loop_laser),
+              compression="bz2", chunk_msgs=64)
+    read = bag_to_scan_log(bag_path)
+    assert np.array_equal(read.ranges, loop_log.ranges[:n_bag])
+    odom_err = float(np.abs(read.odom - loop_log.odom[:n_bag]).max())
+    time_err = float(np.abs(read.times - loop_log.times[:n_bag]).max())
+    assert odom_err <= 1e-9 and time_err <= 1e-9, (odom_err, time_err)
+    with corr_kernel(1):
+        runs = {kind: run_cli(["run", path, "--config", rr_yaml], f"bag_vs_npz {kind}")
+                for kind, path in (("bag", bag_path), ("npz", head_log(n_bag)))}
+    (eb, rb, sb), (en, rn, sn) = runs["bag"], runs["npz"]
+    tb, tn = eb.trajectory_array(), en.trajectory_array()
+    assert tb.shape == tn.shape and np.abs(tb[:, 0] - tn[:, 0]).max() <= 1e-9, \
+        "the .bag run kept other scans"
+    d = np.abs(tb - tn)
+    d[:, 3] = np.abs(np.arctan2(np.sin(d[:, 3]), np.cos(d[:, 3])))
+    emit({"phase": "bag_vs_npz", "scans": n_bag, "compression": "bz2", "chunk_msgs": 64,
+          "bag_bytes": os.path.getsize(bag_path), "ranges_exact": True,
+          "odom_max_abs_err": odom_err, "times_max_abs_err_s": time_err,
+          "kept": len(tb), "max_pos_diff_m": float(d[:, 1:3].max()),
+          "max_ang_diff_rad": float(d[:, 3].max()),
+          "bag": {k: rb[k] for k in ("entry", "replay_s", "launches", "launches_by_shape")},
+          "npz": {k: rn[k] for k in ("entry", "replay_s", "launches")}})
+    assert d[:, 1:3].max() <= POS_TOL and d[:, 3].max() <= ANG_TOL, d.max(0)
+    account("bag_vs_npz bag", sb, ctx_rr1)
+    account("bag_vs_npz npz", sn, ctx_rr1)
+    del eb, en, runs
     tmp.cleanup()
     torch.cuda.empty_cache()
 
@@ -1339,7 +1590,8 @@ def main() -> int:
     on_leg = {LEG1: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
               LEG2: ("correlation_scores[chain",),
               LEG3: ("correlation_scores_v2[", "ray_mark_image[", "bad_ray_count["),
-              LEG4: ("correlation_scores[", "ray_mark_image[", "bad_ray_count[")}
+              LEG4: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
+              LEG5: ("correlation_scores[", "ray_mark_image[", "bad_ray_count[")}
     for leg, names in on_leg.items():
         for name in names:
             assert any(e["launches_from"] == leg and e["name"].startswith(name)

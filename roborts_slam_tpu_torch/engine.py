@@ -1,19 +1,28 @@
-"""SlamEngine — the top-level online SLAM loop (blocking path).
+"""SlamEngine — the top-level online SLAM loop.
 
 Counterpart of the JAX package's ``engine.py`` (``SlamNode`` +
 ``SlamProcessor`` orchestration, src/roborts_slam_node.cpp,
 src/slam/slam_processor.cpp): consumes a scan stream scan by scan, runs the
 front-end step, maintains the scan store (the reference's
 SensorDataManager), and drives the back end (pose graph + loop closure)
-synchronously after every kept scan.
+either synchronously after every kept scan or on a worker thread (the
+reference's BackEndProcessThread, slam_processor.cpp:384-426).
 
-The port carries the blocking per-scan loop with every option of the two
-shipped profiles and of the default configuration: the windowed
-(running-range) match, the rolling match-map window and odometry
-de-distortion on ingest. The asynchronous back-end worker, the pipelined
-fetch and the fused front-end+chain step are not ported (asking for one
-raises ``NotImplementedError``); neither are the pose stream and the
-map-snapshot hooks.
+The port carries every option of the two shipped profiles and of the default
+configuration (the windowed match, the rolling match-map window, odometry
+de-distortion on ingest), the asynchronous back-end worker, the fixed-rate
+pose stream (``pose_at``) and the live-output hooks (``on_pose``,
+``on_map_snapshot``). The pipelined fetch and the fused front-end+chain step
+are not ported (asking for one raises ``NotImplementedError``).
+
+Two threads share the engine in asynchronous mode. The maps are updated in
+place, so the front-end step, map growth, recenters and corrections run
+under ``_state_lock``, the scan store takes its own lock round every access,
+and the worker reads a clone of the pub map made under the state lock. Both
+threads launch on one CUDA stream (the caller's current stream when the
+worker starts): stream order then carries the locks' order to the device,
+and a tensor that one thread frees is not reused by the allocator before
+the other thread's work on it has run.
 
 All device state lives on one explicit ``device``. ``device=None`` means
 the card and raises when there is none; nothing falls back to the CPU.
@@ -23,6 +32,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import queue as _queue
+import threading
 import time as _time
 import warnings
 from fractions import Fraction
@@ -40,6 +51,7 @@ from .io.dedistort import dedistort_scan
 from .models.scan import LaserModel, pack_points, ranges_to_packed
 from .models.grid_map import CountMap, count_map_states, make_prob_map
 from .ops.raster import rebuild_count_map, stamp_scan_batch
+from .utils.profiling import StageTimers
 
 
 def resolve_device(device) -> torch.device:
@@ -90,13 +102,16 @@ class ScanStore:
     src/slam/sensor_data_manager.h:349-595). One copy per scan in
     sensor-local meters on the host, plus a device mirror: plain
     preallocated tensors (capacity doubling) written in place, which the
-    back end's chain matches gather from by id."""
+    back end's chain matches gather from by id. Every public method holds
+    one re-entrant lock: the asynchronous back-end worker corrects poses and
+    gathers from the mirror while the front end appends."""
 
     _DEV_CAP_START = 256
 
     def __init__(self, max_points: int, device,
                  running_range_max_scans: int = 70,
                  running_range_max_distance: float = 5.0):
+        self._lock = threading.RLock()
         self.max_points = max_points
         self.device = torch.device(device)
         self._points: list[np.ndarray] = []
@@ -141,28 +156,29 @@ class ScanStore:
         # calls; the store owns its data
         points = np.array(points, np.float32, copy=True)
         mask = np.array(mask, bool, copy=True)
-        self._points.append(points)
-        self._masks.append(mask)
-        self._n_valid.append(int(n_valid))
         w = mask.astype(np.float64)
-        denom = max(w.sum(), 1.0)
-        self._centroids.append((points * w[:, None]).sum(0) / denom)
+        centroid = (points * w[:, None]).sum(0) / max(w.sum(), 1.0)
         # sensor-local endpoint bbox, cached for O(scans) world-bbox
         # queries after pose corrections (4-corner transform per scan)
         pv = points[mask]
-        self._local_bboxes.append(
-            (pv.min(0), pv.max(0)) if len(pv)
-            else (np.zeros(2, np.float32), np.zeros(2, np.float32)))
-        self.poses.append(np.asarray(pose, np.float64).copy())
-        self.odoms.append(np.asarray(odom, np.float64).copy())
-        self.times.append(float(t))
-        sid = len(self._points) - 1
-        if sid >= self._bary.shape[0]:
-            grown = np.zeros((2 * self._bary.shape[0], 3), np.float64)
-            grown[:self._bary.shape[0]] = self._bary
-            self._bary = grown
-        self._update_running_range(sid)
-        return sid
+        bbox = ((pv.min(0), pv.max(0)) if len(pv)
+                else (np.zeros(2, np.float32), np.zeros(2, np.float32)))
+        with self._lock:
+            self._points.append(points)
+            self._masks.append(mask)
+            self._n_valid.append(int(n_valid))
+            self._centroids.append(centroid)
+            self._local_bboxes.append(bbox)
+            self.poses.append(np.asarray(pose, np.float64).copy())
+            self.odoms.append(np.asarray(odom, np.float64).copy())
+            self.times.append(float(t))
+            sid = len(self._points) - 1
+            if sid >= self._bary.shape[0]:
+                grown = np.zeros((2 * self._bary.shape[0], 3), np.float64)
+                grown[:self._bary.shape[0]] = self._bary
+                self._bary = grown
+            self._update_running_range(sid)
+            return sid
 
     def _update_running_range(self, scan_id: int):
         """Sliding window over recent scans (UpdateRunningRange,
@@ -181,12 +197,14 @@ class ScanStore:
             self.running_ids.pop(0)
 
     def set_pose(self, scan_id: int, pose: np.ndarray):
-        self.poses[scan_id] = np.asarray(pose, np.float64).copy()
-        self._bary_dirty_from = min(self._bary_dirty_from, scan_id)
-        self._dev_poses_stale = True
+        with self._lock:
+            self.poses[scan_id] = np.asarray(pose, np.float64).copy()
+            self._bary_dirty_from = min(self._bary_dirty_from, scan_id)
+            self._dev_poses_stale = True
 
     def poses_array(self) -> np.ndarray:
-        return np.asarray(self.poses)
+        with self._lock:
+            return np.asarray(self.poses)
 
     def scans_world_bbox(self):
         """Union world bbox over every stored scan's endpoints (bounded by
@@ -194,12 +212,13 @@ class ScanStore:
         rays start there). O(scans) via the cached local bboxes — used to
         grow the pub map before a correction rebuild so arbitrarily moved
         poses never stamp clipped."""
-        n = len(self)
-        if n == 0:
-            return None
-        lo = np.stack([b[0] for b in self._local_bboxes])   # (n, 2)
-        hi = np.stack([b[1] for b in self._local_bboxes])
-        poses = np.asarray(self.poses)
+        with self._lock:
+            n = len(self)
+            if n == 0:
+                return None
+            lo = np.stack([b[0] for b in self._local_bboxes])   # (n, 2)
+            hi = np.stack([b[1] for b in self._local_bboxes])
+            poses = np.asarray(self.poses)
         cx = np.stack([lo[:, 0], lo[:, 0], hi[:, 0], hi[:, 0]], 1)  # (n, 4)
         cy = np.stack([lo[:, 1], hi[:, 1], lo[:, 1], hi[:, 1]], 1)
         c = np.cos(poses[:, 2])[:, None]
@@ -226,72 +245,81 @@ class ScanStore:
         """World barycenter pose per scan, served from the incremental
         cache: appends fill rows as scans arrive; pose corrections mark a
         dirty suffix that is recomputed lazily in one vectorized pass."""
-        n = len(self)
-        if self._bary_dirty_from < n:
-            ids = range(self._bary_dirty_from, n)
-            self._bary[self._bary_dirty_from:n] = self._bary_of(ids)
-            self._bary_dirty_from = n
-        return self._bary[:n]
+        with self._lock:
+            n = len(self)
+            if self._bary_dirty_from < n:
+                ids = range(self._bary_dirty_from, n)
+                self._bary[self._bary_dirty_from:n] = self._bary_of(ids)
+                self._bary_dirty_from = n
+            return self._bary[:n].copy()
 
     def pub_map_arrays(self):
-        return self._pub_arrays
+        """``(pub_spec, hits, passes, offset)`` as the engine last published
+        them: the live state tensors in synchronous mode, a clone for the
+        asynchronous worker."""
+        with self._lock:
+            return self._pub_arrays
 
     def device_arrays(self):
         """Device-resident ``(points (cap,P,2), masks (cap,P), poses
         (cap,3))`` of every stored scan. Capacity doubles (one re-upload per
         doubling); otherwise each new scan is one in-place row write. Poses
         re-upload whole (tiny) only after ``set_pose`` invalidated them."""
-        n = len(self)
-        dev = self.device
-        if self._dev_points is None or n > self._dev_cap:
-            cap = self._DEV_CAP_START
-            while cap < n:
-                cap *= 2
-            self._dev_points = torch.zeros((cap, self.max_points, 2),
-                                           dtype=torch.float32, device=dev)
-            self._dev_masks = torch.zeros((cap, self.max_points),
-                                          dtype=torch.bool, device=dev)
-            self._dev_poses = torch.zeros((cap, 3), dtype=torch.float32,
-                                          device=dev)
-            self._dev_cap = cap
-            self._dev_count = 0
-            self._dev_poses_stale = True
-        while self._dev_count < n:
-            i = self._dev_count
-            self._dev_points[i] = torch.as_tensor(self._points[i], device=dev)
-            self._dev_masks[i] = torch.as_tensor(self._masks[i], device=dev)
-            self._dev_poses[i] = torch.as_tensor(
-                self.poses[i], dtype=torch.float32, device=dev)
-            self._dev_count = i + 1
-        if self._dev_poses_stale and n:
-            self._dev_poses[:n] = torch.as_tensor(
-                self.poses_array(), dtype=torch.float32, device=dev)
-        self._dev_poses_stale = False
-        return self._dev_points, self._dev_masks, self._dev_poses
+        with self._lock:
+            n = len(self)
+            dev = self.device
+            if self._dev_points is None or n > self._dev_cap:
+                cap = self._DEV_CAP_START
+                while cap < n:
+                    cap *= 2
+                self._dev_points = torch.zeros((cap, self.max_points, 2),
+                                               dtype=torch.float32, device=dev)
+                self._dev_masks = torch.zeros((cap, self.max_points),
+                                              dtype=torch.bool, device=dev)
+                self._dev_poses = torch.zeros((cap, 3), dtype=torch.float32,
+                                              device=dev)
+                self._dev_cap = cap
+                self._dev_count = 0
+                self._dev_poses_stale = True
+            while self._dev_count < n:
+                i = self._dev_count
+                self._dev_points[i] = torch.as_tensor(self._points[i], device=dev)
+                self._dev_masks[i] = torch.as_tensor(self._masks[i], device=dev)
+                self._dev_poses[i] = torch.as_tensor(
+                    self.poses[i], dtype=torch.float32, device=dev)
+                self._dev_count = i + 1
+            if self._dev_poses_stale and n:
+                self._dev_poses[:n] = torch.as_tensor(
+                    self.poses_array(), dtype=torch.float32, device=dev)
+            self._dev_poses_stale = False
+            return self._dev_points, self._dev_masks, self._dev_poses
 
     def gather(self, ids):
         """Device tensors ``(points (n,P,2), masks (n,P), poses (n,3), valid
         (n,))`` of the scans ``ids``, gathered on the device from the mirror
         by one id vector (no padding: exactly the ids asked for)."""
-        pts, msk, poses = self.device_arrays()
-        idx = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
-        valid = torch.ones((len(idx),), dtype=torch.bool, device=self.device)
-        return pts[idx], msk[idx], poses[idx], valid
+        with self._lock:
+            pts, msk, poses = self.device_arrays()
+            idx = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+            valid = torch.ones((len(idx),), dtype=torch.bool, device=self.device)
+            return pts[idx], msk[idx], poses[idx], valid
 
     def running_range_arrays(self):
         """Device tensors of the running-range window scans, the input the
         windowed front-end step takes. The reference defines the
         windowed-match path but ships it disabled (kUseRunningRangeScanMatch
         = false, slam_processor.h:265)."""
-        return self.gather(self.running_ids)
+        with self._lock:
+            return self.gather(self.running_ids)
 
     def all_arrays(self):
         """Every stored scan as device tensors ``(points (n,P,2), masks
         (n,P), poses (n,3), valid (n,))`` — views of the device mirror."""
-        pts, msk, poses = self.device_arrays()
-        n = len(self)
-        valid = torch.ones((n,), dtype=torch.bool, device=self.device)
-        return pts[:n], msk[:n], poses[:n], valid
+        with self._lock:
+            pts, msk, poses = self.device_arrays()
+            n = len(self)
+            valid = torch.ones((n,), dtype=torch.bool, device=self.device)
+            return pts[:n], msk[:n], poses[:n], valid
 
 
 @dataclasses.dataclass
@@ -304,6 +332,8 @@ class EngineDiagnostics:
     pub_clip_rebuilds: int = 0     # post-match growth events (_ensure_pub_covers)
     scans_dedistorted: int = 0     # scans through the de-distortion ingest branch
     recenters: int = 0             # rolling match-map window rebuilds
+    backend_batches: int = 0       # back-end passes (one loop-closure attempt each)
+    backend_batch_max: int = 0     # most kept scans one back-end pass took
     match_time_s: float = 0.0
     backend_time_s: float = 0.0
     dedistort_time_s: float = 0.0  # host clock, inside _dedistorted_points
@@ -311,7 +341,7 @@ class EngineDiagnostics:
 
 
 class SlamEngine:
-    """Online SLAM over a scan stream (blocking per-scan loop)."""
+    """Online SLAM over a scan stream."""
 
     def __init__(self, config: SlamConfig, laser: LaserModel,
                  world_size: float | None = None,
@@ -320,16 +350,14 @@ class SlamEngine:
                  pipelined_fetch: bool = False,
                  device=None):
         unsupported = {
-            "synchronous_backend=False (async back-end worker)":
-                not synchronous_backend,
             "fused_backend (fused front-end+chain step)": fused_backend,
             "pipelined_fetch": pipelined_fetch,
         }
         for what, asked in unsupported.items():
             if asked:
                 raise NotImplementedError(
-                    f"{what} is not ported yet: the port carries the "
-                    f"blocking per-scan loop only")
+                    f"{what} is not ported yet (ROADMAP.md, queue 1, item 5: "
+                    f"fused / pipelined modes)")
         self.device = resolve_device(device)
         self.config = config
         self.laser = laser
@@ -355,24 +383,57 @@ class SlamEngine:
             running_range_max_distance=config.running_range_max_distance)
         self.backend = Backend(self.bspec, self.store)
         self.backend.on_corrections = self._apply_corrections
-        self.synchronous_backend = True
+        self.synchronous_backend = synchronous_backend
         self.diag = EngineDiagnostics()
+        # host clock per stage, the JAX package's names: frontend_step (the
+        # whole step, its summary fetch included), frontend_fetch (that
+        # fetch), backend_update, backend_loop_closure (on the worker's
+        # thread in asynchronous mode)
+        self.timers = StageTimers()
         self._bounds_warned = False
         self.trajectory: list[tuple[float, np.ndarray]] = []  # (t, pose) per kept scan
         self._last_kept_odom: np.ndarray | None = None
         self._last_process_time: float | None = None
         self._odom_history: list[tuple[float, np.ndarray]] = []
         self._pending_backend: list[tuple] = []   # (scan_id, cov)
+        # map→odom transform (the reference's 100 Hz TF broadcast state,
+        # roborts_slam_node.cpp:178-196): pose_at(t) composes it with
+        # odometry interpolated at t. Updated per kept scan and per correction.
+        self._map_to_odom = np.zeros(3)       # (tx, ty, dtheta)
+        # live-output hooks (PublishMapThread / PublishVisualization analogs,
+        # roborts_slam_node.cpp:355-488), called on the thread that called
+        # process: on_pose(t, pose) per kept scan; on_map_snapshot(n, grid)
+        # every map_snapshot_every kept scans with the occupancy grid
+        self.on_pose = None
+        self.on_map_snapshot = None
+        self.map_snapshot_every: int = 0      # 0 = disabled
+        # held across the front-end step, map growth, recenters and
+        # corrections (re-entrant: the step grows and recenters inside it)
+        self._state_lock = threading.RLock()
+        # asynchronous back end (BackEndProcessThread,
+        # slam_processor.cpp:384-426): items (scan_id, cov, None); the
+        # worker starts at the first kept scan and again after finish()
+        self._backend_queue = (_queue.SimpleQueue()
+                               if not synchronous_backend else None)
+        self._backend_thread: threading.Thread | None = None
+        self._backend_error: BaseException | None = None
 
     # ---- gates (MoveEnough, slam_processor.cpp:604-616) ----
 
     def _publish_pub_arrays(self):
         """Install the feedback pub-map arrays the back end reads
-        (ScanStore.pub_map_arrays): the live state tensors, paired with
-        their spec."""
+        (ScanStore.pub_map_arrays), paired with their spec. Synchronous mode
+        hands out the live state tensors. Asynchronous mode hands the worker
+        a clone: the front end's next step carves the live maps in place
+        while a chain match's map check may still read them. Callers hold
+        the state lock, so the clone is queued on the stream before any
+        later carve."""
         pub = self.state.pub
-        self.store._pub_arrays = (self.fspec.pub_spec, pub.hits, pub.passes,
-                                  pub.offset)
+        if self.synchronous_backend:
+            arrs = (pub.hits, pub.passes, pub.offset)
+        else:
+            arrs = (pub.hits.clone(), pub.passes.clone(), pub.offset.clone())
+        self.store._pub_arrays = (self.fspec.pub_spec, *arrs)
 
     def _move_enough(self, odom: np.ndarray, t: float) -> bool:
         cfg = self.config
@@ -393,10 +454,9 @@ class SlamEngine:
     # ---- main entry ----
 
     def process(self, ranges: np.ndarray, odom: np.ndarray, t: float) -> bool:
-        """Feed one scan (raw ranges); returns True if accepted."""
-        self._odom_history.append((t, np.asarray(odom, np.float64).copy()))
-        if len(self._odom_history) > 64:
-            self._odom_history.pop(0)
+        """Feed one scan (raw ranges); returns True if accepted. Raises the
+        asynchronous worker's exception if it has failed."""
+        self._raise_backend_error()
         # move gate BEFORE any conversion work — rejected scans must cost
         # nothing on the ingest path (MoveEnough runs first in the
         # reference too, slam_processor.cpp:92)
@@ -433,12 +493,19 @@ class SlamEngine:
     def process_points(self, points, mask, n_valid: int, odom: np.ndarray,
                        t: float) -> bool:
         """Feed one pre-converted scan (sensor-local cartesian points,
-        front-packed mask)."""
+        front-packed mask) — the native RSLG stream's ingest path."""
+        self._raise_backend_error()
         if not self._pass_move_gate(odom, t):
             return False
         return self._process_gated(points, mask, n_valid, odom, t)
 
     def _pass_move_gate(self, odom: np.ndarray, t: float) -> bool:
+        """Record the odometry sample (de-distortion and ``pose_at`` read
+        the history; the JAX package records it on the ranges path only, so
+        its native stream serves no pose between kept scans), then gate."""
+        self._odom_history.append((t, np.asarray(odom, np.float64).copy()))
+        if len(self._odom_history) > 64:
+            self._odom_history.pop(0)
         self.diag.scans_in += 1
         if self._move_enough(np.asarray(odom, np.float64), t):
             return True
@@ -448,57 +515,75 @@ class SlamEngine:
     def _process_gated(self, points, mask, n_valid: int, odom: np.ndarray,
                        t: float) -> bool:
         """Run the front-end step on an already-gated, already-converted
-        scan (both ingest paths funnel here)."""
+        scan (both ingest paths funnel here). The step and the bookkeeping of
+        a kept scan (store, trajectory, map→odom) are one critical section
+        against corrections from the asynchronous worker."""
         self._last_process_time = t
         np_points = np.asarray(points, np.float32)
         np_mask = np.asarray(mask, bool)
         odom = np.asarray(odom, np.float64)
-        # grow the pub map BEFORE the step so this scan lands unclipped
-        # (UpdateBound runs inside UpdateMapByRange in the reference,
-        # grid_map_base.h:257-274); the predicted pose is within the search
-        # window of the matched pose
-        self._maybe_grow_pub(self._predict_pose_host(odom), np_points, np_mask)
         dev = self.device
-        t0 = _time.perf_counter()
-        scan = (torch.as_tensor(np_points, device=dev),
-                torch.as_tensor(np_mask, device=dev), int(n_valid),
-                torch.as_tensor(odom, dtype=torch.float32, device=dev))
-        if self.config.use_running_range_scan_match and len(self.store) > 0:
-            # windowed match path (slam_processor.cpp:134-159): the
-            # running-range window scans are the match map source, gathered
-            # on the device from the store mirror by id
-            self.state, info = frontend_step_windowed(
-                self.fspec, self.state, *self.store.running_range_arrays(),
-                *scan)
-        else:
-            self.state, info = frontend_step(self.fspec, self.state, *scan)
-        # the step fetched ONE packed summary — pose + cov + gates
-        s = info.summary
-        accepted = bool(s[12] > 0.5)
-        pose = s[:3].copy()
-        cov = s[3:12].reshape(3, 3).copy()
-        # summary's pose IS the new state.pose, so the mirror updates
-        # unconditionally
-        self._host_pose = pose.copy()
-        self._publish_pub_arrays()
-        self.diag.match_time_s += _time.perf_counter() - t0
+        with self._state_lock:
+            # grow the pub map BEFORE the step so this scan lands unclipped
+            # (UpdateBound runs inside UpdateMapByRange in the reference,
+            # grid_map_base.h:257-274); the predicted pose is within the
+            # search window of the matched pose
+            self._maybe_grow_pub(self._predict_pose_host(odom), np_points,
+                                 np_mask)
+            t0 = _time.perf_counter()
+            scan = (torch.as_tensor(np_points, device=dev),
+                    torch.as_tensor(np_mask, device=dev), int(n_valid),
+                    torch.as_tensor(odom, dtype=torch.float32, device=dev))
+            with self.timers.stage("frontend_step"):
+                if (self.config.use_running_range_scan_match
+                        and len(self.store) > 0):
+                    # windowed match path (slam_processor.cpp:134-159): the
+                    # running-range window scans are the match map source,
+                    # gathered on the device from the store mirror by id
+                    self.state, info = frontend_step_windowed(
+                        self.fspec, self.state,
+                        *self.store.running_range_arrays(), *scan,
+                        timers=self.timers)
+                else:
+                    self.state, info = frontend_step(
+                        self.fspec, self.state, *scan, timers=self.timers)
+            # the step fetched ONE packed summary — pose + cov + gates
+            s = info.summary
+            accepted = bool(s[12] > 0.5)
+            pose = s[:3].copy()
+            cov = s[3:12].reshape(3, 3).copy()
+            # summary's pose IS the new state.pose, so the mirror updates
+            # unconditionally
+            self._host_pose = pose.copy()
+            self._publish_pub_arrays()
+            self.diag.match_time_s += _time.perf_counter() - t0
 
-        if not accepted:
-            self.diag.scans_dropped_gate += 1
-            return False
+            if not accepted:
+                self.diag.scans_dropped_gate += 1
+                return False
 
-        self.diag.scans_processed += 1
-        if self.config.match_map_window > 0:
-            self._maybe_recenter(pose)
-        else:
-            self._check_world_bounds(pose)
-        self._last_kept_odom = odom.copy()
-        scan_id = self.store.add(np_points, np_mask, n_valid, pose, odom, t)
-        self.trajectory.append((t, pose))
+            self.diag.scans_processed += 1
+            if self.config.match_map_window > 0:
+                self._maybe_recenter(pose)
+            else:
+                self._check_world_bounds(pose)
+            self._last_kept_odom = odom.copy()
+            scan_id = self.store.add(np_points, np_mask, n_valid, pose, odom, t)
+            self.trajectory.append((t, pose))
+            self._update_map_to_odom(pose, odom)
+        if self.on_pose is not None:
+            self.on_pose(t, pose.copy())
+        if (self.map_snapshot_every > 0 and self.on_map_snapshot is not None
+                and len(self.store) % self.map_snapshot_every == 0):
+            self.on_map_snapshot(len(self.store), self.get_pub_map())
         self._ensure_pub_covers(pose, np_points, np_mask)
 
-        self._pending_backend.append((scan_id, cov))
-        self.process_backend()
+        if self.synchronous_backend:
+            self._pending_backend.append((scan_id, cov))
+            self.process_backend()
+        else:
+            self._ensure_backend_thread()
+            self._backend_queue.put((scan_id, cov, None))
         return True
 
     def process_backend(self):
@@ -507,14 +592,81 @@ class SlamEngine:
         then one loop-closure attempt at the newest."""
         if not self._pending_backend:
             return
+        batch, self._pending_backend = self._pending_backend, []
+        self._backend_pass([(sid, cov, None) for sid, cov in batch])
+
+    def _backend_pass(self, batch: list[tuple]):
+        """One back-end pass over queued ``(scan_id, cov, None)`` items: a
+        graph update for each, then one loop-closure attempt at the last."""
         t0 = _time.perf_counter()
-        last_id = self._pending_backend[-1][0]
-        while self._pending_backend:
-            sid, cov = self._pending_backend.pop(0)
-            self.backend.update_graph(sid, cov)
-        self.backend.try_close_loop(last_id)
+        with self.timers.stage("backend_update"):
+            for sid, cov, _ in batch:
+                self.backend.update_graph(sid, cov)
+        with self.timers.stage("backend_loop_closure"):
+            self.backend.try_close_loop(batch[-1][0])
         self.diag.loop_closures = self.backend.num_loop_closures
+        self.diag.backend_batches += 1
+        self.diag.backend_batch_max = max(self.diag.backend_batch_max, len(batch))
         self.diag.backend_time_s += _time.perf_counter() - t0
+
+    # ---- asynchronous back end (the reference's back-end thread) ----
+
+    def _backend_worker(self, stream):
+        """Drain the queue batch-wise, exactly the reference's condvar loop
+        (BackEndProcessThread, slam_processor.cpp:384-426): graph updates
+        for every buffered scan, then one loop-closure pass at the newest.
+        Launches go to ``stream``, the front end's. An exception is kept
+        for the front end to raise (``_raise_backend_error``) and ends the
+        worker."""
+        try:
+            if stream is not None:
+                torch.cuda.set_device(self.device)
+                torch.cuda.set_stream(stream)
+            while True:
+                batch = [self._backend_queue.get()]
+                while True:        # drain without blocking (buffer drain, :405)
+                    try:
+                        batch.append(self._backend_queue.get_nowait())
+                    except _queue.Empty:
+                        break
+                stop = batch[-1] is None
+                if stop:
+                    batch.pop()
+                if batch:
+                    self._backend_pass(batch)
+                if stop:
+                    return
+        except Exception as err:  # noqa: BLE001 — raised again on the front end
+            self._backend_error = err
+
+    def _ensure_backend_thread(self):
+        """(Re)start the worker: finish() joins it, and the engine stays
+        usable afterwards (the next kept scan starts it again)."""
+        self._raise_backend_error()
+        if self._backend_thread is None or not self._backend_thread.is_alive():
+            stream = (torch.cuda.current_stream(self.device)
+                      if self.device.type == "cuda" else None)
+            self._backend_thread = threading.Thread(
+                target=self._backend_worker, args=(stream,),
+                name="slam-backend", daemon=True)
+            self._backend_thread.start()
+
+    def _raise_backend_error(self):
+        if self._backend_error is not None:
+            raise self._backend_error
+
+    def finish(self):
+        """Flush pending back-end work; in asynchronous mode join the
+        worker. NOT terminal: further process() calls continue the run (and
+        start the worker again). Raises the worker's exception if it
+        failed."""
+        self.process_backend()
+        thread = self._backend_thread
+        if thread is not None and thread.is_alive():
+            self._backend_queue.put(None)
+            thread.join()
+        self._backend_thread = None
+        self._raise_backend_error()
 
     def _check_world_bounds(self, pose: np.ndarray):
         """The fine and coarse *match* maps keep the preallocated world
@@ -572,7 +724,9 @@ class SlamEngine:
 
     def _grow_pub_to_bbox(self, bmin: np.ndarray, bmax: np.ndarray) -> bool:
         """Grow the pub map (never shrinks) so [bmin, bmax] (world meters)
-        is inside its extent; returns True if it grew."""
+        is inside its extent; returns True if it grew. Callers hold the
+        state lock, so that the need is read and the map grown in one hold
+        (the worker's corrections grow the map too)."""
         spec = self.fspec.pub_spec
         res = spec.resolution
         off = self._host_pub_off
@@ -633,13 +787,15 @@ class SlamEngine:
         extent = np.array([spec.width, spec.height]) * spec.resolution
         if ((bmin + off >= 0).all() and (bmax + off <= extent).all()):
             return
-        self._grow_pub_to_bbox(bmin, bmax)
-        self.diag.pub_clip_rebuilds += 1
-        self._rebuild_pub()
+        with self._state_lock:
+            self._grow_pub_to_bbox(bmin, bmax)
+            self.diag.pub_clip_rebuilds += 1
+            self._rebuild_pub()
 
     def _rebuild_pub(self):
         """Rebuild the pub map from every stored scan at its current pose
-        (InitMapWithRangeVec on the pub map, slam_processor.cpp:350-366)."""
+        (InitMapWithRangeVec on the pub map, slam_processor.cpp:350-366).
+        Callers hold the state lock."""
         cfg = self.config
         pts, msk, poses, valid = self.store.all_arrays()
         self.state.pub = rebuild_count_map(
@@ -651,7 +807,8 @@ class SlamEngine:
     def _grow_pub_to(self, new_w: int, new_h: int,
                      shift_x_cells: int, shift_y_cells: int):
         """Re-allocate the pub map at (new_h, new_w) on the device, placing
-        the old content ``shift`` cells from the new low edge."""
+        the old content ``shift`` cells from the new low edge. Callers hold
+        the state lock."""
         spec = self.fspec.pub_spec
         old = self.state.pub
         H, W = old.hits.shape
@@ -710,7 +867,8 @@ class SlamEngine:
         """Fresh fine+coarse match maps at the given offsets, stamped from
         the stored scans within beam reach of the new window — exactly those
         (the JAX package pads the batch to size buckets only to bound
-        recompilation). Keeps the host mirrors of both offsets in step."""
+        recompilation). Keeps the host mirrors of both offsets in step.
+        Callers hold the state lock."""
         t0 = _time.perf_counter()
         cfg = self.config
         fs, cs = self.fspec.fine_spec, self.fspec.coarse_spec
@@ -732,49 +890,124 @@ class SlamEngine:
         self.diag.recenters += 1
         self.diag.recenter_time_s += _time.perf_counter() - t0
 
-    def finish(self):
-        """Flush pending back-end work. NOT terminal: further process()
-        calls continue the run."""
-        self.process_backend()
-
     # ---- corrections (CorrectPoseAndMap, slam_processor.cpp:329-370) ----
 
     def _apply_corrections(self, corrected: np.ndarray):
-        n_corr = corrected.shape[0]
-        n = len(self.store)
-        if n_corr == 0 or n == 0:
-            return
-        for sid in range(min(n_corr, n)):
-            self.store.set_pose(sid, corrected[sid])
-        # corrections move poses arbitrarily (a loop closure can swing the
-        # whole trailing trajectory); grow the pub map to the corrected
-        # scans' union bbox BEFORE the rebuild so no stamp clips
-        bbox = self.store.scans_world_bbox()
-        if bbox is not None:
-            self._grow_pub_to_bbox(bbox[0], bbox[1])
-        pts, msk, poses, valid = self.store.all_arrays()
-        cfg = self.config
-        st = self.state
-        st.pub, st.coarse, st.fine = _rebuild_all_maps(
-            self.fspec.pub_spec, self.fspec.coarse_spec, self.fspec.fine_spec,
-            st.pub.offset, st.coarse.offset, st.fine.offset,
-            pts, msk, poses, valid,
-            cfg.map_update_free_factor, cfg.map_update_occu_factor,
-            int(cfg.map_min_passthrough), bool(cfg.coarse_map_use_blur),
-            bool(cfg.fine_map_use_blur))
-        # carry the corrected latest pose forward (deviation from the
-        # reference, which leaves current_sensor_pose_ stale; carrying the
-        # correction is strictly more robust). Mirror through float32 so the
-        # host copy equals the device value.
-        self._host_pose = np.asarray(self.store.poses[-1],
-                                     np.float32).astype(np.float64)
-        new_pose = torch.as_tensor(self.store.poses[-1], dtype=torch.float32,
-                                   device=self.device)
-        st.pose = new_pose
-        st.last_map_update_pose = new_pose.clone()
-        for i, (t, _) in enumerate(self.trajectory):
-            self.trajectory[i] = (t, self.store.poses[i].copy())
-        self._publish_pub_arrays()
+        """Install the solved poses of the first ``len(corrected)`` scans and
+        rebuild every map, under the state lock (the back end calls this,
+        on the worker's thread in asynchronous mode)."""
+        with self._state_lock:
+            n_corr = corrected.shape[0]
+            n = len(self.store)
+            if n_corr == 0 or n == 0:
+                return
+            if n_corr < n:
+                # asynchronous mode: scans kept after the solve's snapshot are
+                # not in ``corrected``. Re-anchor them with the last corrected
+                # scan's rigid delta so that their placement relative to the
+                # corrected trajectory is kept before every map is rebuilt
+                # round them (the reference corrects EVERY stored scan under the
+                # map mutex, CorrectPoseAndMap, slam_processor.cpp:329-370).
+                old = np.asarray(self.store.poses[n_corr - 1], np.float64)
+                new = np.asarray(corrected[n_corr - 1], np.float64)
+                dth = new[2] - old[2]
+                c_d, s_d = np.cos(dth), np.sin(dth)
+                for sid in range(n_corr, n):
+                    p = np.asarray(self.store.poses[sid], np.float64)
+                    rel = p[:2] - old[:2]
+                    th = p[2] + dth
+                    self.store.set_pose(sid, np.array([
+                        new[0] + c_d * rel[0] - s_d * rel[1],
+                        new[1] + s_d * rel[0] + c_d * rel[1],
+                        np.arctan2(np.sin(th), np.cos(th))]))
+            for sid in range(n_corr):
+                self.store.set_pose(sid, corrected[sid])
+            # corrections move poses arbitrarily (a loop closure can swing the
+            # whole trailing trajectory); grow the pub map to the corrected
+            # scans' union bbox BEFORE the rebuild so no stamp clips
+            bbox = self.store.scans_world_bbox()
+            if bbox is not None:
+                self._grow_pub_to_bbox(bbox[0], bbox[1])
+            pts, msk, poses, valid = self.store.all_arrays()
+            cfg = self.config
+            st = self.state
+            st.pub, st.coarse, st.fine = _rebuild_all_maps(
+                self.fspec.pub_spec, self.fspec.coarse_spec, self.fspec.fine_spec,
+                st.pub.offset, st.coarse.offset, st.fine.offset,
+                pts, msk, poses, valid,
+                cfg.map_update_free_factor, cfg.map_update_occu_factor,
+                int(cfg.map_min_passthrough), bool(cfg.coarse_map_use_blur),
+                bool(cfg.fine_map_use_blur))
+            # carry the corrected latest pose forward (deviation from the
+            # reference, which leaves current_sensor_pose_ stale; carrying the
+            # correction is strictly more robust). Mirror through float32 so the
+            # host copy equals the device value.
+            self._host_pose = np.asarray(self.store.poses[-1],
+                                         np.float32).astype(np.float64)
+            # corrections move the map frame under the odometry: refresh
+            # map→odom so that pose_at(t) jumps WITH the correction (the
+            # reference recomputes it at the next matched scan)
+            self._update_map_to_odom(self._host_pose,
+                                     np.asarray(self.store.odoms[-1], np.float64))
+            new_pose = torch.as_tensor(self.store.poses[-1], dtype=torch.float32,
+                                       device=self.device)
+            st.pose = new_pose
+            st.last_map_update_pose = new_pose.clone()
+            for i, (t, _) in enumerate(self.trajectory):
+                self.trajectory[i] = (t, self.store.poses[i].copy())
+            self._publish_pub_arrays()
+
+    # ---- fixed-rate pose stream (PublishTransform thread analog,
+    #      roborts_slam_node.cpp:178-196) ----
+
+    def _update_map_to_odom(self, pose: np.ndarray, odom: np.ndarray):
+        """map→odom = pose ∘ odom⁻¹: the SE(2) transform that carries the
+        odometry frame onto the map frame, refreshed whenever a matched pose
+        pairs with a known odometry (per kept scan and per correction) — the
+        reference computes exactly this after each accepted match
+        (roborts_slam_node.cpp:124-135) and broadcasts it at 100 Hz."""
+        dth = pose[2] - odom[2]
+        c, s = np.cos(dth), np.sin(dth)
+        self._map_to_odom = np.array([
+            pose[0] - (c * odom[0] - s * odom[1]),
+            pose[1] - (s * odom[0] + c * odom[1]),
+            dth])
+
+    def _interp_odom(self, t: float) -> np.ndarray | None:
+        """Odometry pose at time t, linearly interpolated from the rolling
+        history (shortest arc on the angle); clamps outside the span."""
+        h = self._odom_history
+        if not h:
+            return None
+        if t <= h[0][0]:
+            return h[0][1].copy()
+        if t >= h[-1][0]:
+            return h[-1][1].copy()
+        for (t0, o0), (t1, o1) in zip(h, h[1:]):
+            if t0 <= t <= t1:
+                a = 0.0 if t1 == t0 else (t - t0) / (t1 - t0)
+                dth = np.arctan2(np.sin(o1[2] - o0[2]), np.cos(o1[2] - o0[2]))
+                return np.array([o0[0] + a * (o1[0] - o0[0]),
+                                 o0[1] + a * (o1[1] - o0[1]),
+                                 o0[2] + a * dth])
+        return h[-1][1].copy()
+
+    def pose_at(self, t: float) -> np.ndarray:
+        """Best pose estimate at an arbitrary time ``t`` — the decoupled pose
+        channel the reference serves through its 100 Hz map→odom TF
+        broadcast (roborts_slam_node.cpp:178-196): the latest map→odom
+        transform (which jumps at corrections) composed with odometry
+        interpolated at ``t``, so consumers get a pose BETWEEN kept scans
+        without waiting for the next match."""
+        o = self._interp_odom(t)
+        if o is None or not self.config.use_odometry:
+            return self._host_pose.copy()
+        tx, ty, dth = self._map_to_odom
+        c, s = np.cos(dth), np.sin(dth)
+        th = dth + o[2]
+        return np.array([tx + c * o[0] - s * o[1],
+                         ty + s * o[0] + c * o[1],
+                         np.arctan2(np.sin(th), np.cos(th))])
 
     # ---- outputs ----
 
@@ -790,15 +1023,92 @@ class SlamEngine:
         self.finish()
         return self.trajectory_array()
 
+    def run_stream(self, stream, progress: bool = False) -> np.ndarray:
+        """Consume a ``NativeScanStream`` (io/native_log.py): points are
+        decoded and gated by the native worker ahead of the engine."""
+        for i, (_idx, pts, msk, nv, t, odom) in enumerate(stream):
+            self.process_points(pts, msk, nv, odom, t)
+            if progress and i % 50 == 0:
+                print(f"  scan {i} kept={len(self.store)} "
+                      f"loops={self.backend.num_loop_closures}")
+        self.finish()
+        return self.trajectory_array()
+
     def trajectory_array(self) -> np.ndarray:
-        return np.array([[t, p[0], p[1], p[2]] for t, p in self.trajectory])
+        with self._state_lock:
+            return np.array([[t, p[0], p[1], p[2]] for t, p in self.trajectory])
 
     def get_pub_map(self) -> np.ndarray:
         """Published occupancy grid: -1 unknown / 0 free / 100 occupied
         (PublishMapThread, roborts_slam_node.cpp:427-469)."""
         cfg = self.config
-        return count_map_states(self.state.pub, cfg.map_min_passthrough,
-                                cfg.map_occu_threshold).cpu().numpy()
+        with self._state_lock:
+            states = count_map_states(self.state.pub, cfg.map_min_passthrough,
+                                      cfg.map_occu_threshold)
+        return states.cpu().numpy()
 
     def force_graph_optimize(self):
+        """ForceComputeByCeres: one SPA solve and correction now (after the
+        asynchronous worker, if any, has taken every queued scan)."""
+        self.finish()
         self.backend.force_optimize()
+
+    def warm_backend(self, solver_buckets: tuple[int, ...] = (64, 128, 256),
+                     match_buckets: tuple[int, ...] | None = None,
+                     rebuild_buckets: tuple[int, ...] = (64, 128, 256),
+                     calibrate: bool = True):
+        """Do once, before streaming, what the back end's first calls would
+        do the first time: on the card, build the kernels; then run one
+        chain-match batch at each of ``match_buckets`` chains (default:
+        every power of two up to ``CHAIN_BATCH``, the chunk the back end
+        matches at most), one SPA solve of the live graph and one rebuild of
+        every map from the live store. Results are discarded and no engine,
+        store or graph state changes (the back end's counters are put back),
+        so a run continued after warming equals the unwarmed run bit for
+        bit. Call it after the first scan.
+
+        The JAX package's signature is kept. ``solver_buckets``,
+        ``rebuild_buckets`` and ``calibrate`` are accepted and ignored:
+        PyTorch compiles nothing per shape, so there are no shape buckets to
+        warm, and the chain chunk is the fixed ``CHAIN_BATCH``, not a
+        compiler-measured cap."""
+        from .backend.processor import CHAIN_BATCH
+        from .backend.spa import solve_pose_graph
+
+        if len(self.store) == 0:
+            raise RuntimeError("warm_backend needs >= 1 processed scan")
+        self.finish()
+        if self.device.type == "cuda":
+            from .ops.cuda import build
+
+            build.build_all()
+        if match_buckets is None:
+            match_buckets = tuple(b for b in (1, 2, 4, 8, 16, 32)
+                                  if b <= CHAIN_BATCH)
+        back = self.backend
+        counters = (back.num_chain_dispatches, back.chain_match_time_s,
+                    back.num_solves, back.solve_time_s)
+        try:
+            for b in match_buckets:
+                if b <= CHAIN_BATCH:
+                    back._match_chain_batch([[0]] * b, 0,
+                                            self.store.poses[0].copy())
+            graph = back.graph
+            if graph.num_vertices > 1:
+                solve_pose_graph(graph.as_solver_data(self.store.poses_array(),
+                                                      self.device))
+            cfg = self.config
+            with self._state_lock:
+                st = self.state
+                _rebuild_all_maps(
+                    self.fspec.pub_spec, self.fspec.coarse_spec,
+                    self.fspec.fine_spec, st.pub.offset, st.coarse.offset,
+                    st.fine.offset, *self.store.all_arrays(),
+                    cfg.map_update_free_factor, cfg.map_update_occu_factor,
+                    int(cfg.map_min_passthrough),
+                    bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            (back.num_chain_dispatches, back.chain_match_time_s,
+             back.num_solves, back.solve_time_s) = counters

@@ -19,6 +19,7 @@ buffers are donated:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -134,15 +135,17 @@ def init_frontend_state(spec: FrontendSpec, device) -> FrontendState:
 
 
 def frontend_step(spec: FrontendSpec, state: FrontendState,
-                  points, mask, n_valid: int, cur_odom
+                  points, mask, n_valid: int, cur_odom, timers=None
                   ) -> tuple[FrontendState, StepInfo]:
     """One scan through the front end (slam_processor.cpp:65-247), matching
     against the accumulated scan-match maps. Mutates ``state`` (maps in
-    place, scalars replaced) and returns it with the step's ``StepInfo``."""
+    place, scalars replaced) and returns it with the step's ``StepInfo``.
+    ``timers`` (a ``StageTimers``), when given, times the summary fetch as
+    its ``frontend_fetch`` stage."""
     return _frontend_core(
         spec, state,
         spec.fine_spec, state.fine, spec.coarse_spec, state.coarse,
-        points, mask, n_valid, cur_odom)
+        points, mask, n_valid, cur_odom, timers)
 
 
 def _predict(spec: FrontendSpec, state: FrontendState, cur_odom):
@@ -157,7 +160,7 @@ def _predict(spec: FrontendSpec, state: FrontendState, cur_odom):
 
 def frontend_step_windowed(spec: FrontendSpec, state: FrontendState,
                            win_points, win_masks, win_poses, win_valid,
-                           points, mask, n_valid: int, cur_odom
+                           points, mask, n_valid: int, cur_odom, timers=None
                            ) -> tuple[FrontendState, StepInfo]:
     """Windowed variant (use_running_range_scan_match): the match maps are
     rebuilt from the running-range window scans ``win_* (W, ...)``,
@@ -186,13 +189,13 @@ def frontend_step_windowed(spec: FrontendSpec, state: FrontendState,
     return _frontend_core(
         spec, state,
         spec.window_fine_spec, wfine, spec.window_coarse_spec, wcoarse,
-        points, mask, n_valid, cur_odom)
+        points, mask, n_valid, cur_odom, timers)
 
 
 def _frontend_core(spec: FrontendSpec, state: FrontendState,
                    match_fine_spec: ProbMapSpec, match_fine: ProbMap,
                    match_coarse_spec: ProbMapSpec, match_coarse: ProbMap,
-                   points, mask, n_valid: int, cur_odom
+                   points, mask, n_valid: int, cur_odom, timers=None
                    ) -> tuple[FrontendState, StepInfo]:
     """Shared front-end step: predict → match (against the given maps) →
     penalty → gates → persistent map updates."""
@@ -253,8 +256,10 @@ def _frontend_core(spec: FrontendSpec, state: FrontendState,
     pose_accepted = accept | is_first
     # the one host synchronisation of the step: the packed summary carries
     # the gate that decides the in-place map updates
-    summary = pack_step_summary(pose, out.cov, gate, pose_accepted, score) \
-        .cpu().numpy().astype(np.float64)
+    packed = pack_step_summary(pose, out.cov, gate, pose_accepted, score)
+    with (timers.stage("frontend_fetch") if timers is not None
+          else contextlib.nullcontext()):
+        summary = packed.cpu().numpy().astype(np.float64)
     if summary[12] > 0.5:
         update_count_map(spec.pub_spec, state.pub, points, mask, pose,
                          free_f, occu_f)

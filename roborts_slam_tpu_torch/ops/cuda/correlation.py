@@ -29,10 +29,11 @@ import torch
 
 from . import build, launch
 
-launches = 0      # launches of the first kernel (incremented only where it launches)
+launches = 0      # launches of the first kernel (counted only where it launches)
 launches_v2 = 0   # launches of the second kernel
 # the same launches by shape: (kernel version, B, A, S, N, H, W) -> count
 launch_shapes: collections.Counter = collections.Counter()
+# all three are counted by ``_count``, under ``launch.count_lock``
 
 _V2_ENV = "ROBORTS_CORR_KERNEL"
 MAX_SHARED_BYTES = 232_448    # shared memory a block may opt in to (227 KB)
@@ -225,6 +226,17 @@ def _plan(version, probs, rx, ry, svalid, xs, ys, divisor) -> _Plan:
     return plan
 
 
+def _count(version: int, key: tuple):
+    """Count one launch of kernel ``version`` at shape ``key``."""
+    global launches, launches_v2
+    with launch.count_lock:
+        if version == 2:
+            launches_v2 += 1
+        else:
+            launches += 1
+        launch_shapes[key] += 1
+
+
 def _run(version, probs, rx, ry, svalid, xs, ys, default_prob, divisor):
     """Launch kernel ``version`` on the current stream of the tensors' device
     and count the launch by shape; raises if the launch is refused."""
@@ -237,7 +249,7 @@ def _run(version, probs, rx, ry, svalid, xs, ys, default_prob, divisor):
     if err != 0:
         raise RuntimeError(
             f"correlation kernel {plan.count_key}: launch failed (CUDA error {err})")
-    launch_shapes[plan.count_key] += 1
+    _count(version, plan.count_key)
     return scores
 
 
@@ -265,10 +277,7 @@ def correlation_scores(probs, rx, ry, svalid, xs, ys, default_prob: float,
     f32, divisor (B,) f32 — all contiguous and on one device."""
     if not probs.is_cuda:
         return _plain(probs, rx, ry, svalid, xs, ys, default_prob, divisor)
-    global launches
-    scores = _run(1, probs, rx, ry, svalid, xs, ys, default_prob, divisor)
-    launches += 1
-    return scores
+    return _run(1, probs, rx, ry, svalid, xs, ys, default_prob, divisor)
 
 
 def correlation_scores_v2(probs, rx, ry, svalid, xs, ys, default_prob: float,
@@ -280,10 +289,7 @@ def correlation_scores_v2(probs, rx, ry, svalid, xs, ys, default_prob: float,
     from it."""
     if not probs.is_cuda:
         return _plain(probs, rx, ry, svalid, xs, ys, default_prob, divisor)
-    global launches_v2
-    scores = _run(2, probs, rx, ry, svalid, xs, ys, default_prob, divisor)
-    launches_v2 += 1
-    return scores
+    return _run(2, probs, rx, ry, svalid, xs, ys, default_prob, divisor)
 
 
 def prepared_launch(version: int, probs, rx, ry, svalid, xs, ys,

@@ -3,12 +3,18 @@
 A launch goes to PyTorch's current stream of the tensors' device. The
 stream's pointer comes without building a ``Stream`` object where this torch
 can give it so, and the device guard is taken only when the tensors' device
-is not the current one.
+is not the current one. The wrappers count their launches under
+``count_lock``: the engine launches kernels from two threads (the front end
+and the asynchronous back-end worker), and a bare ``+= 1`` can lose a count.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+count_lock = threading.Lock()
 
 
 def _stream_pointer(index: int) -> int:

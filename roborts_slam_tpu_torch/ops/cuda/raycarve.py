@@ -185,6 +185,22 @@ def _check_plan(start, end, ray_ok, hits, passes, min_passthrough, occu_threshol
     return plan
 
 
+def _count_mark(key: tuple):
+    """Count one carve launch at shape ``key``, under ``launch.count_lock``."""
+    global mark_launches
+    with launch.count_lock:
+        mark_launches += 1
+        mark_shapes[key] += 1
+
+
+def _count_check(key: tuple):
+    """Count one ray-check launch at shape ``key``, under ``launch.count_lock``."""
+    global check_launches
+    with launch.count_lock:
+        check_launches += 1
+        check_shapes[key] += 1
+
+
 def ray_mark_image(start, end, beam_mask, height: int, width: int):
     """Per-scan mark image (H, W) int32: 1 on each ray's free prefix
     ``t ∈ [0, n-1]``, 2 at endpoints, occupied beats free; out-of-map cells
@@ -193,7 +209,6 @@ def ray_mark_image(start, end, beam_mask, height: int, width: int):
         from ..raster import mark_image_plain
 
         return mark_image_plain(start, end, beam_mask, height, width)
-    global mark_launches
     plan = _mark_plan(start, end, beam_mask, height, width, MARK_DESIGN)
     mark = start.new_empty(plan.out_shape)
     err = launch.call(_launcher(*_MARK_FN), plan.index, start.data_ptr(), end.data_ptr(),
@@ -201,8 +216,7 @@ def ray_mark_image(start, end, beam_mask, height: int, width: int):
     if err != 0:
         raise RuntimeError(
             f"ray_mark_image {plan.count_key}: launch failed (CUDA error {err})")
-    mark_launches += 1
-    mark_shapes[plan.count_key] += 1
+    _count_mark(plan.count_key)
     return mark
 
 
@@ -219,7 +233,6 @@ def bad_ray_count(start, end, ray_ok, hits, passes, min_passthrough: float,
 
         return bad_rays_plain(start, end, ray_ok, hits, passes,
                               min_passthrough, occu_threshold, thr_d2)
-    global check_launches
     plan = _check_plan(start, end, ray_ok, hits, passes, min_passthrough,
                        occu_threshold, thr_d2)
     out = start.new_empty(plan.out_shape)
@@ -229,8 +242,7 @@ def bad_ray_count(start, end, ray_ok, hits, passes, min_passthrough: float,
     if err != 0:
         raise RuntimeError(
             f"bad_ray_count {plan.count_key}: launch failed (CUDA error {err})")
-    check_launches += 1
-    check_shapes[plan.count_key] += 1
+    _count_check(plan.count_key)
     return out
 
 

@@ -239,23 +239,28 @@ def test_device_none_raises_without_a_card():
     ({}, dict(match_map_window=8.0)),
 ])
 def test_unsupported_modes_raise(kwargs, over):
-    """The three engine modes that are not ported raise; the three options
-    that raised while they were not ported (windowed match, de-distortion,
+    """The two engine modes that are not ported (fused, pipelined) raise,
+    naming their ROADMAP item; the options that raised while they were not
+    ported (the asynchronous back end, windowed match, de-distortion,
     rolling match-map window) now construct and take scans."""
     d = np.load(os.path.join(REPO, "tests", "data", "golden_icra.npz"))
     cfg = T.load_config(SIM_YAML, fine_map_resolution=0.05, world_size=20.0, **over)
     laser = TLaser.from_array(d["laser"])
-    if kwargs:
-        with pytest.raises(NotImplementedError):
+    if kwargs.get("fused_backend") or kwargs.get("pipelined_fetch"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 5"):
             T.SlamEngine(cfg, laser, device="cpu", **kwargs)
         return
     if "use_odom_correct" in over:
         import dataclasses
         laser = dataclasses.replace(laser, scan_time=0.02)
-    eng = T.SlamEngine(cfg, laser, device="cpu")
+    eng = T.SlamEngine(cfg, laser, device="cpu", **kwargs)
     for i in range(3):
         eng.process(d["ranges"][i], d["odom"][i], float(d["times"][i]))
+    eng.finish()
     assert len(eng.store) >= 2 and np.isfinite(eng.trajectory_array()).all()
+    assert eng.backend.graph.num_vertices == len(eng.store)
+    if kwargs:                                   # the asynchronous back end
+        assert eng._backend_thread is None and eng.diag.backend_batches >= 1
     if "match_map_window" in over:
         fs = eng.fspec.fine_spec
         assert fs.width * fs.resolution <= 8.0 + 128 * fs.resolution
