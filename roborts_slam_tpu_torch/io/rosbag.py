@@ -314,7 +314,7 @@ def bag_to_scan_log(path: str, scan_topic: str | None = None,
     times = np.array([s["time"] for s in scans])
 
     def fixed_width(r):
-        """Short scans (driver dropouts) pad with an invalid range — never
+        """Short scans (lidar dropouts) pad with an invalid range — never
         np.resize, which cycles real returns into phantom bearings."""
         if len(r) == beams:
             return r
