@@ -10,7 +10,7 @@ PyTorch versions of the kernels then run on the CPU). ``.rslg`` logs are
 read through the native decode worker (``io/native_log.py``, built with
 ``g++`` at first use), ``.bag`` files through ``io/rosbag.py``. ``--async``
 runs the back end on its worker thread. ``bench`` raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``NotImplementedError`` naming where ROADMAP.md queues it.
 """
 
 from __future__ import annotations
@@ -19,9 +19,6 @@ import argparse
 import sys
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1: {item})")
 
 
 def _cmd_run(args) -> int:
@@ -99,7 +96,9 @@ def _cmd_simulate(args) -> int:
 
 
 def _cmd_bench(args) -> int:
-    _not_ported("bench", "item 7, tooling: bench/ and a bench.py for the port")
+    raise NotImplementedError(
+        "bench is not ported yet (ROADMAP.md: the benchmark comes with the PR "
+        "that writes BENCHMARK.json)")
 
 
 def main(argv=None) -> int:

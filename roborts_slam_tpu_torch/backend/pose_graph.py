@@ -4,10 +4,10 @@ Own copy of the JAX package's ``backend/pose_graph.py`` (``RangeScanPoseGraph``
 / ``PoseGraph``, src/pose_graph/{pose_graph.h, range_scan_pose_graph.{h,cpp}}).
 The graph bookkeeping (ids, adjacency, chains) is irregular and tiny — it
 stays in Python/NumPy on the host — while every heavy step (chain-map rebuild
-+ matching, the SPA solve) runs on the device. The blocking engine drives
-the graph from one thread, so the JAX copy's locking and its
-hypothetical-vertex pre-discovery (used only by its fused and pipelined
-modes) are not carried.
++ matching, the SPA solve) runs on the device. Every public method holds one
+re-entrant lock: in the fused asynchronous mode the front end's chain
+pre-discovery (``find_*_for_new``, which adds hypothetical vertices for the
+time of one query) runs while the back-end worker updates the graph.
 
 Chain semantics replicated from the reference:
 - ``find_near_linked_scans``: BFS over graph edges keeping scans whose
@@ -22,8 +22,22 @@ Chain semantics replicated from the reference:
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 
 import numpy as np
+
+
+def _locked(method):
+    """Run ``method`` under the graph's lock, so that each public operation
+    is atomic against the other thread; discovery racing the worker then
+    changes only the fused hit rate (the set-equality check where the
+    chain rows are consumed), never the graph."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with self._lock:
+            return method(self, *args, **kwargs)
+    return wrapper
 
 
 def _pose_relative_host(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -57,18 +71,22 @@ class PoseGraph:
         self.adjacency: list[set] = []
         self.edges: list[GraphEdge] = []
         self._edge_set: set = set()
+        self._lock = threading.RLock()
 
     @property
     def num_vertices(self) -> int:
         return len(self.adjacency)
 
+    @_locked
     def add_vertex(self) -> int:
         self.adjacency.append(set())
         return len(self.adjacency) - 1
 
+    @_locked
     def has_edge(self, i: int, j: int) -> bool:
         return (min(i, j), max(i, j)) in self._edge_set
 
+    @_locked
     def add_edge(self, source: int, target: int, source_pose, target_pose,
                  covariance) -> bool:
         """Add a constraint if absent (AddEdge, range_scan_pose_graph.cpp:80-100).
@@ -103,6 +121,7 @@ class PoseGraph:
         max_d2 = self.link_scan_max_distance**2
         return (d2 < max_d2) if strict else (d2 <= max_d2)
 
+    @_locked
     def find_near_linked_scans(self, scan_id: int, barycenters: np.ndarray
                                ) -> list[int]:
         """BFS keeping vertices within link_scan_max_distance of scan_id's
@@ -122,6 +141,7 @@ class PoseGraph:
                         queue.append(nb)
         return out
 
+    @_locked
     def find_near_chains(self, scan_id: int, barycenters: np.ndarray
                          ) -> list[list[int]]:
         """FindNearChainsIds (range_scan_pose_graph.cpp:207-270)."""
@@ -157,6 +177,61 @@ class PoseGraph:
                 chains.append(chain)
         return chains
 
+    def _with_hypothetical_vertex(self, fn, k: int = 1):
+        """Run ``fn()`` with the next ``k`` vertices (ids num_vertices ..
+        num_vertices+k-1) and their odometry edges to their predecessors
+        present for the time of the call. ``k > 1`` serves the pipelined
+        fetch: in-flight scans, whose acceptance is not known yet, are taken
+        as kept for the chain pre-discovery (the set-equality check where
+        the rows are consumed catches any divergence)."""
+        base = self.num_vertices
+        for j in range(k):
+            new_id = base + j
+            prev = new_id - 1
+            self.adjacency.append({prev} if prev >= 0 else set())
+            if prev >= 0:
+                self.adjacency[prev].add(new_id)
+        try:
+            return fn()
+        finally:
+            for j in reversed(range(k)):
+                new_id = base + j
+                prev = new_id - 1
+                self.adjacency.pop()
+                if prev >= 0:
+                    self.adjacency[prev].discard(new_id)
+
+    @_locked
+    def find_all_loop_candidates_for_new(self, barycenters_with_new: np.ndarray,
+                                         k: int = 1) -> list[list[int]]:
+        """TryCloseLoop's first-round chain set for the next vertex as it will
+        be discovered after that scan's UpdateGraph, from the hypothetical
+        barycenter rows (cf. ``find_near_chains_for_new``). ``k``: the
+        hypothetical vertices (pending pipelined scans, then the new one)."""
+        new_id = self.num_vertices + k - 1
+        if new_id == 0:
+            return []
+        return self._with_hypothetical_vertex(
+            lambda: self.find_all_loop_candidates(new_id, barycenters_with_new), k)
+
+    @_locked
+    def find_near_chains_for_new(self, barycenters_with_new: np.ndarray,
+                                 k: int = 1) -> list[list[int]]:
+        """Chain discovery for the next vertex (id ``num_vertices + k - 1``)
+        as it will run inside UpdateGraph — the vertex added and the odometry
+        edge to its predecessor present (range_scan_pose_graph.cpp:44-78) —
+        without changing the committed graph: the fused step matches these
+        chains before the scan is kept, and the consumer runs the real
+        discovery afterwards and matches again where the sets differ.
+        ``barycenters_with_new``: (n+k, 3), the committed barycenters and one
+        row per hypothetical vertex (``k - 1`` pending pipelined scans, then
+        the new scan)."""
+        new_id = self.num_vertices + k - 1
+        if new_id == 0:
+            return []
+        return self._with_hypothetical_vertex(
+            lambda: self.find_near_chains(new_id, barycenters_with_new), k)
+
     @staticmethod
     def sparsify_chain(chain: list[int], limit: int = 10) -> list[int]:
         """Stride-2 sparsification to <= limit+1 ids
@@ -171,6 +246,7 @@ class PoseGraph:
                 break
         return out
 
+    @_locked
     def find_possible_loop_closure(self, scan_id: int, barycenters: np.ndarray,
                                    start_id: int) -> tuple[list[int], int]:
         """FindPossibleLoopClosure (range_scan_pose_graph.cpp:357-392):
@@ -206,6 +282,7 @@ class PoseGraph:
             pos = b + 1
         return [], n
 
+    @_locked
     def find_all_loop_candidates(self, scan_id: int, barycenters: np.ndarray
                                  ) -> list[list[int]]:
         """All candidate loop chains for a scan in one pass (the batched
@@ -228,6 +305,7 @@ class PoseGraph:
         d2 = np.sum((barycenters[ids, :2] - c[None]) ** 2, axis=1)
         return int(ids[np.argmin(d2)])
 
+    @_locked
     def as_solver_data(self, poses: np.ndarray, device):
         """Pack the graph into PoseGraphData tensors on ``device`` for the
         SPA solver. Unpadded: there is no compilation to amortise."""

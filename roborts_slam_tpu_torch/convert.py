@@ -19,12 +19,16 @@ STATE_KEYS = (
     "pose", "last_map_update_pose", "map_penalize_times", "scan_index",
     "last_kept_odom",
 )
+# taken when given (a state the JAX package's pipelined step has run on)
+OPTIONAL_STATE_KEYS = ("last_step_time",)
 
 
 def state_from_jax(arrays: dict[str, np.ndarray], device) -> FrontendState:
     """Build the port's ``FrontendState`` from the JAX ``FrontendState``'s
     leaves, given as NumPy arrays under ``STATE_KEYS`` (``state.pub.hits`` ->
-    ``"pub_hits"`` and so on). Arrays are copied to ``device``."""
+    ``"pub_hits"`` and so on) and, where present, ``OPTIONAL_STATE_KEYS``
+    (``last_step_time`` is otherwise the JAX initial state's -3.4e38). Arrays
+    are copied to ``device``."""
     missing = [k for k in STATE_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"state_from_jax: missing {missing}")
@@ -40,6 +44,8 @@ def state_from_jax(arrays: dict[str, np.ndarray], device) -> FrontendState:
         map_penalize_times=i32("map_penalize_times"),
         scan_index=i32("scan_index"),
         last_kept_odom=f32("last_kept_odom"),
+        last_step_time=torch.tensor(np.float32(arrays.get("last_step_time", -3.4e38)),
+                                    device=device),
     )
 
 

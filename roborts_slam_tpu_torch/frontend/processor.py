@@ -11,10 +11,16 @@ buffers are donated:
 - The step runs eagerly. Small state (pose, counters, last kept odometry)
   stays on the device as tensors and is gated with ``torch.where`` exactly
   as in JAX, so no value is fetched to decide it.
-- The map-update gate is decided **once on the host**: the step fetches the
-  packed ``(15,)`` summary (one synchronisation per scan — the same fetch
-  the engine needs anyway) and, if the gate passed, updates the three maps
-  **in place**. A rejected scan touches no map.
+- The blocking step decides the map-update gate **once on the host**: it
+  fetches the packed ``(15,)`` summary (one synchronisation per scan — the
+  same fetch the engine needs anyway) and, if the gate passed, updates the
+  three maps **in place**. A rejected scan touches no map.
+- The device-gated step (``device_gate=True``: the fused and pipelined
+  steps of ``backend/processor.py``) reads nothing: the three updates always
+  run, in place, and the gate tensor zeroes the count increments and drops
+  the stamps where it is false (``ops/raster.py``), which leaves the maps'
+  bits as they were — the JAX step's ``where(gate, new, old)`` without a
+  whole-map select. Its summary stays on the device for the caller.
 """
 
 from __future__ import annotations
@@ -86,6 +92,10 @@ class FrontendState:
     map_penalize_times: torch.Tensor    # () int32
     scan_index: torch.Tensor            # () int32 = current_data_index
     last_kept_odom: torch.Tensor        # (3,) odometry of the last KEPT scan
+    # time (relative to the engine's first stamp) of the last scan that
+    # passed the move gate: the device-side MoveEnough check of a step given
+    # ``cur_time`` reads it (the pipelined step dispatches ahead of the host)
+    last_step_time: torch.Tensor        # () f32
 
 
 class StepInfo(NamedTuple):
@@ -94,7 +104,8 @@ class StepInfo(NamedTuple):
     cov: torch.Tensor           # (3,3)
     map_updated: torch.Tensor   # () bool — scan kept (added to store + backend)
     pose_accepted: torch.Tensor  # () bool — pose gate passed
-    summary: np.ndarray         # (15,) float64 host copy of pack_step_summary
+    packed: torch.Tensor        # (15,) f32 on the device, pack_step_summary
+    summary: np.ndarray | None  # its float64 host copy (None: device-gated step)
 
 
 def pack_step_summary(pose, cov, map_updated, pose_accepted, score) -> torch.Tensor:
@@ -131,21 +142,27 @@ def init_frontend_state(spec: FrontendSpec, device) -> FrontendState:
         map_penalize_times=torch.zeros((), dtype=torch.int32, device=device),
         scan_index=torch.zeros((), dtype=torch.int32, device=device),
         last_kept_odom=torch.zeros(3, **f32),
+        last_step_time=torch.full((), -3.4e38, **f32),
     )
 
 
 def frontend_step(spec: FrontendSpec, state: FrontendState,
-                  points, mask, n_valid: int, cur_odom, timers=None
+                  points, mask, n_valid: int, cur_odom, cur_time=None,
+                  timers=None, device_gate: bool = False
                   ) -> tuple[FrontendState, StepInfo]:
     """One scan through the front end (slam_processor.cpp:65-247), matching
     against the accumulated scan-match maps. Mutates ``state`` (maps in
     place, scalars replaced) and returns it with the step's ``StepInfo``.
+    ``cur_time`` (a () f32 tensor, seconds since the engine's first stamp)
+    adds the MoveEnough gate on the device against the last kept odometry
+    and ``state.last_step_time``. ``device_gate``: update the maps under the
+    gate on the device and read nothing (see the module docstring).
     ``timers`` (a ``StageTimers``), when given, times the summary fetch as
     its ``frontend_fetch`` stage."""
     return _frontend_core(
         spec, state,
         spec.fine_spec, state.fine, spec.coarse_spec, state.coarse,
-        points, mask, n_valid, cur_odom, timers)
+        points, mask, n_valid, cur_odom, cur_time, timers, device_gate)
 
 
 def _predict(spec: FrontendSpec, state: FrontendState, cur_odom):
@@ -189,18 +206,30 @@ def frontend_step_windowed(spec: FrontendSpec, state: FrontendState,
     return _frontend_core(
         spec, state,
         spec.window_fine_spec, wfine, spec.window_coarse_spec, wcoarse,
-        points, mask, n_valid, cur_odom, timers)
+        points, mask, n_valid, cur_odom, None, timers)
 
 
 def _frontend_core(spec: FrontendSpec, state: FrontendState,
                    match_fine_spec: ProbMapSpec, match_fine: ProbMap,
                    match_coarse_spec: ProbMapSpec, match_coarse: ProbMap,
-                   points, mask, n_valid: int, cur_odom, timers=None
+                   points, mask, n_valid: int, cur_odom, cur_time=None,
+                   timers=None, device_gate: bool = False
                    ) -> tuple[FrontendState, StepInfo]:
     """Shared front-end step: predict → match (against the given maps) →
-    penalty → gates → persistent map updates."""
+    penalty → gates → persistent map updates. With ``cur_time`` the
+    MoveEnough gate (slam_processor.cpp:604-616) also runs on the device
+    against the last kept odometry: a move-gated scan changes nothing."""
     cfg = spec.config
     is_first = state.scan_index == 0
+    move_ok = None
+    if cur_time is not None and cfg.use_odometry and cfg.use_move_check:
+        dt_pass = (cur_time - state.last_step_time) > cfg.move_time_threshold
+        d = cur_odom[:2] - state.last_kept_odom[:2]
+        dist_pass = torch.hypot(d[0], d[1]) >= cfg.move_distance_threshold
+        dth = cur_odom[2] - state.last_kept_odom[2]
+        ang_pass = torch.abs(torch.atan2(torch.sin(dth), torch.cos(dth))) \
+            >= cfg.move_angle_threshold
+        move_ok = is_first | dt_pass | dist_pass | ang_pass
     predict = _predict(spec, state, cur_odom)
 
     # --- scan match (:133-149) ---
@@ -232,8 +261,10 @@ def _frontend_core(spec: FrontendSpec, state: FrontendState,
         0,
     )
 
-    # --- pose accept gate (:182-186) ---
+    # --- pose accept gate (:182-186); a move-gated scan changes nothing ---
     accept = score > max(0.5, cfg.map_update_score_threshold)
+    if move_ok is not None:
+        accept = accept & move_ok
     pose = torch.where(is_first, state.pose,
                        torch.where(accept, out.pose, state.pose))
     score = torch.where(is_first, 1.0, score)
@@ -245,7 +276,10 @@ def _frontend_core(spec: FrontendSpec, state: FrontendState,
     gate = score > cfg.map_update_score_threshold
     if cfg.use_map_update_move_check:
         gate = gate & moved
-    gate = gate | (state.scan_index < 1) | is_first
+    gate = gate | (state.scan_index < 1)
+    if move_ok is not None:
+        gate = gate & move_ok
+    gate = gate | is_first
 
     # pub map factors: the first scan is trusted (slam_processor.cpp:540-552)
     free_f = torch.where(is_first, float(cfg.map_min_passthrough),
@@ -254,28 +288,41 @@ def _frontend_core(spec: FrontendSpec, state: FrontendState,
                          float(cfg.map_update_occu_factor))
 
     pose_accepted = accept | is_first
-    # the one host synchronisation of the step: the packed summary carries
-    # the gate that decides the in-place map updates
     packed = pack_step_summary(pose, out.cov, gate, pose_accepted, score)
-    with (timers.stage("frontend_fetch") if timers is not None
-          else contextlib.nullcontext()):
-        summary = packed.cpu().numpy().astype(np.float64)
-    if summary[12] > 0.5:
+    summary = None
+    if device_gate:
         update_count_map(spec.pub_spec, state.pub, points, mask, pose,
-                         free_f, occu_f)
+                         free_f, occu_f, gate=gate)
         stamp_scan(spec.coarse_spec, state.coarse, points, mask, pose,
-                   use_blur=cfg.coarse_map_use_blur)
+                   use_blur=cfg.coarse_map_use_blur, gate=gate)
         stamp_scan(spec.fine_spec, state.fine, points, mask, pose,
-                   use_blur=cfg.fine_map_use_blur)
+                   use_blur=cfg.fine_map_use_blur, gate=gate)
+    else:
+        # the one host synchronisation of the blocking step: the packed
+        # summary carries the gate that decides the in-place map updates
+        with (timers.stage("frontend_fetch") if timers is not None
+              else contextlib.nullcontext()):
+            summary = packed.cpu().numpy().astype(np.float64)
+        if summary[12] > 0.5:
+            update_count_map(spec.pub_spec, state.pub, points, mask, pose,
+                             free_f, occu_f)
+            stamp_scan(spec.coarse_spec, state.coarse, points, mask, pose,
+                       use_blur=cfg.coarse_map_use_blur)
+            stamp_scan(spec.fine_spec, state.fine, points, mask, pose,
+                       use_blur=cfg.fine_map_use_blur)
 
     state.pose = pose
     state.last_map_update_pose = torch.where(gate, pose,
                                              state.last_map_update_pose)
+    if move_ok is not None:
+        pen_times = torch.where(move_ok, pen_times, state.map_penalize_times)
+        state.last_step_time = torch.where(move_ok, cur_time.to(torch.float32),
+                                           state.last_step_time)
     state.map_penalize_times = torch.where(is_first, 0, pen_times).to(torch.int32)
     state.scan_index = state.scan_index + gate.to(torch.int32)
     # the engine keeps a scan (and its odom) iff the map-update gate passed
     state.last_kept_odom = torch.where(gate, cur_odom.to(torch.float32),
                                        state.last_kept_odom)
     info = StepInfo(pose=pose, score=score, cov=out.cov, map_updated=gate,
-                    pose_accepted=pose_accepted, summary=summary)
+                    pose_accepted=pose_accepted, packed=packed, summary=summary)
     return state, info

@@ -9,15 +9,16 @@ graph, the front-end maps and scalars, the engine's gating memory, its
 odometry history and its diagnostics; maps are restored as they were (no
 rebuild), so a resumed run continues as the run that was saved would have.
 
-Departures from the JAX copy: no ``dev_time_origin`` is written (the port
-keeps no device clock; the key is ignored on load); the engine's float64
-host mirrors of the three map offsets are written too (``host_*_offset``;
-the device holds them in float32, and a resumed run that recentered or grew
-from the float32 values would place its maps a rounding step away from the
-run that was saved); and the map→odom transform is recomputed on load from
-the last stored pose and its odometry, so that ``pose_at`` serves the saved
-run's transform at once. A checkpoint without the mirrors (the JAX
-package's) restores them from the device offsets.
+Departures from the JAX copy: the engine's float64 host mirrors of the three
+map offsets are written too (``host_*_offset``; the device holds them in
+float32, and a resumed run that recentered or grew from the float32 values
+would place its maps a rounding step away from the run that was saved); the
+map→odom transform is recomputed on load from the last stored pose and its
+odometry, so that ``pose_at`` serves the saved run's transform at once; and
+where a file has no ``dev_time_origin`` (the stamp the pipelined step's
+device times count from; the JAX engine never sets it) the resumed engine
+counts from the last processed stamp. A checkpoint without the mirrors (the
+JAX package's) restores them from the device offsets.
 
 Format: a single ``.npz`` with the config as JSON inside it.
 """
@@ -40,7 +41,8 @@ def _host(t) -> np.ndarray:
 
 
 def save_checkpoint(engine, path: str) -> None:
-    """Serialize a SlamEngine (the asynchronous back end is flushed first)."""
+    """Serialize a SlamEngine (the pipeline is drained and the asynchronous
+    back end flushed first)."""
     engine.finish()
     with engine._state_lock:
         st = engine.store
@@ -101,6 +103,9 @@ def save_checkpoint(engine, path: str) -> None:
             last_process_time=np.float64(
                 engine._last_process_time
                 if engine._last_process_time is not None else np.nan),
+            dev_time_origin=np.float64(
+                engine._dev_time_origin
+                if engine._dev_time_origin is not None else np.nan),
             diag=np.array([diag.scans_in, diag.scans_processed,
                            diag.scans_dropped_gate, diag.scans_dropped_move,
                            diag.loop_closures], np.int64),
@@ -150,6 +155,10 @@ def load_checkpoint(path: str, synchronous_backend: bool = True, device=None):
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     lko = z["last_kept_odom"]
+    lpt = float(z["last_process_time"])
+    origin = float(z.get("dev_time_origin", np.nan))
+    if not np.isfinite(origin):
+        origin = lpt if np.isfinite(lpt) else None
     with engine._state_lock:
         ph, pw = z["pub_hits"].shape
         ps = engine.fspec.pub_spec
@@ -170,6 +179,9 @@ def load_checkpoint(path: str, synchronous_backend: bool = True, device=None):
             scan_index=torch.as_tensor(z["state_scan_index"], **i32),
             # nan = no kept scan yet (the step's first-scan branch ignores it)
             last_kept_odom=torch.as_tensor(np.where(np.isnan(lko), 0.0, lko), **f32),
+            # the device move gate's clock, so that a resume goes on pipelined
+            last_step_time=torch.full(
+                (), lpt - origin if np.isfinite(lpt) else -3.4e38, **f32),
         )
         engine._publish_pub_arrays()
         # the host mirrors the per-scan geometry checks read
@@ -186,8 +198,9 @@ def load_checkpoint(path: str, synchronous_backend: bool = True, device=None):
         engine._odom_history = [
             (float(z["odom_history_t"][i]), z["odom_history_p"][i].astype(np.float64))
             for i in range(z["odom_history_t"].shape[0])]
-        lpt = float(z["last_process_time"])
         engine._last_process_time = None if np.isnan(lpt) else lpt
+        engine._prev_process_time = engine._last_process_time
+        engine._dev_time_origin = origin
         if len(st):
             engine._update_map_to_odom(np.asarray(st.poses[-1], np.float64),
                                        np.asarray(st.odoms[-1], np.float64))

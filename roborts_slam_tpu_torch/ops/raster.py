@@ -70,24 +70,41 @@ def dilate_with_kernel(img, kernel: np.ndarray):
     return out
 
 
+_STAMP_FOOTPRINTS: dict = {}    # (spec, device) -> (offsets (K²,2), values (K²,))
+
+
+def _stamp_footprint(spec: ProbMapSpec, dev):
+    """The blur kernel's cell offsets ``[dy, dx]`` and values on ``dev``,
+    made once per (spec, device): a copy from host memory per stamp would
+    wait for the device."""
+    key = (spec, str(dev))
+    if key not in _STAMP_FOOTPRINTS:
+        h = spec.kernel_half
+        offs = np.stack(np.meshgrid(np.arange(-h, h + 1), np.arange(-h, h + 1),
+                                    indexing="ij"), -1).reshape(-1, 2)
+        _STAMP_FOOTPRINTS[key] = (
+            torch.as_tensor(offs, dtype=torch.int64, device=dev),
+            torch.as_tensor(spec.blur_kernel().reshape(-1), dtype=torch.float32,
+                            device=dev))
+    return _STAMP_FOOTPRINTS[key]
+
+
 def stamp_scan(spec: ProbMapSpec, pmap: ProbMap, points, mask, pose_world,
-               use_blur: bool = True) -> ProbMap:
+               use_blur: bool = True, gate=None) -> ProbMap:
     """Update a scan-match map with one scan (UpdateMapByRange with
     just_update_occu=true): max-merge the (blurred) endpoint stamp, as a
     sparse scatter-max of the kernel footprint around every endpoint
-    (P x K x K values). Writes ``pmap.probs`` in place."""
+    (P x K x K values). Writes ``pmap.probs`` in place. ``gate`` (a () bool
+    tensor): where it is false every value is dropped on the device and the
+    map keeps its bits, with nothing read on the host."""
     _, end, valid = _scan_cells(spec.inv_res, pmap.offset, points, mask,
                                 pose_world)
     dev = pmap.probs.device
     end = end.to(torch.int64)
+    if gate is not None:
+        valid = valid & gate
     if use_blur and spec.kernel_half > 0:
-        kernel = spec.blur_kernel()                  # (K, K), center 1.0
-        h = spec.kernel_half
-        offs = np.stack(np.meshgrid(np.arange(-h, h + 1),
-                                    np.arange(-h, h + 1),
-                                    indexing="ij"), -1).reshape(-1, 2)  # (K²,2) [dy,dx]
-        kvals = torch.as_tensor(kernel.reshape(-1), dtype=torch.float32, device=dev)
-        offs = torch.as_tensor(offs, dtype=torch.int64, device=dev)
+        offs, kvals = _stamp_footprint(spec, dev)
         cy = end[:, None, 1] + offs[:, 0]                               # (P, K²)
         cx = end[:, None, 0] + offs[:, 1]
         vals = kvals[None, :].expand(cy.shape)
@@ -222,15 +239,23 @@ def scan_mark_image(spec: CountMapSpec, offset, points, mask, pose_world):
 
 
 def update_count_map(spec: CountMapSpec, cmap: CountMap, points, mask,
-                     pose_world, free_factor, occu_factor) -> CountMap:
+                     pose_world, free_factor, occu_factor, gate=None) -> CountMap:
     """Pub-map update for one scan (CountCellFunctions, grid_map_cell.h:94-111):
     per touched cell: pass += 1+free_factor; endpoint cells additionally
-    hit += 1+occu_factor. Writes ``cmap.hits`` / ``cmap.passes`` in place."""
+    hit += 1+occu_factor. Writes ``cmap.hits`` / ``cmap.passes`` in place.
+    ``gate`` (a () bool tensor) multiplies both increments: where it is
+    false the mark image is still computed and zeros are added, so the
+    counts keep their bits, with nothing read on the host."""
     mark = scan_mark_image(spec, cmap.offset, points, mask, pose_world)
     touched = (mark > 0).to(torch.float32)
     occu = (mark == 2).to(torch.float32)
-    cmap.hits.add_(occu * (1.0 + occu_factor))
-    cmap.passes.add_(touched * (1.0 + free_factor))
+    occu_inc = 1.0 + occu_factor
+    free_inc = 1.0 + free_factor
+    if gate is not None:
+        on = gate.to(torch.float32)
+        occu_inc, free_inc = occu_inc * on, free_inc * on
+    cmap.hits.add_(occu * occu_inc)
+    cmap.passes.add_(touched * free_inc)
     return cmap
 
 

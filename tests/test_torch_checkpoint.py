@@ -160,9 +160,10 @@ def test_jax_checkpoint_loads_in_the_port(icra, tmp_path):
 
 
 def test_port_checkpoint_has_the_jax_layout(icra, tmp_path):
-    """The port writes the JAX package's keys (all but ``dev_time_origin``)
-    with the same shapes, plus its host mirrors of the map offsets, and the
-    JAX package loads the file."""
+    """The port writes the JAX package's keys (``dev_time_origin``, the
+    pipelined step's device clock, among them) with the same shapes, plus
+    its host mirrors of the map offsets, and the JAX package loads the
+    file."""
     je = _jax(icra)
     te = _port(icra)
     _feed(je, icra, range(20))
@@ -171,7 +172,7 @@ def test_port_checkpoint_has_the_jax_layout(icra, tmp_path):
     jsave(je, str(tmp_path / "j.npz"))
     save_checkpoint(te, str(tmp_path / "t.npz"))
     with np.load(tmp_path / "j.npz") as zj, np.load(tmp_path / "t.npz") as zt:
-        assert set(zt.files) == set(zj.files) - {"dev_time_origin"} | HOST_KEYS
+        assert set(zt.files) == set(zj.files) | HOST_KEYS
         for k in set(zt.files) - HOST_KEYS:
             if k != "config_json":
                 assert zt[k].shape == zj[k].shape, k
@@ -240,3 +241,63 @@ def test_resume_keeps_the_rolling_window_on_its_lattice(tmp_path):
     np.testing.assert_array_equal(trajs["part"], want)
     assert trajs["jax_layout"].shape == want.shape
     assert np.abs(trajs["jax_layout"] - want).max() > 0
+
+
+def test_checkpoint_resume_under_pipeline(icra, tmp_path):
+    """(JAX ``test_engine_features.py:813-844``) A checkpoint taken in the
+    middle of a pipelined run (the save drains the scans in flight) resumes
+    into pipelined mode with the device move-gate clock seeded: the resumed
+    run equals a straight-through pipelined run within 1e-4."""
+    straight = _port(icra)
+    straight.pipelined_fetch = True
+    _feed(straight, icra, range(len(ORDER)))
+    straight.finish()
+    part = _port(icra)
+    part.pipelined_fetch = True
+    _feed(part, icra, range(CUT))
+    path = str(tmp_path / "pipe.npz")
+    save_checkpoint(part, path)
+    assert not part._inflight
+    resumed = load_checkpoint(path, device="cpu")
+    assert resumed._dev_time_origin == part._dev_time_origin == TIMES[0]
+    assert float(resumed.state.last_step_time) == np.float32(TIMES[CUT - 1] - TIMES[0])
+    assert resumed._prev_process_time == TIMES[CUT - 1]
+    resumed.pipelined_fetch = True
+    _feed(resumed, icra, range(CUT, len(ORDER)))
+    resumed.finish()
+    assert resumed.diag.fused_steps > 0 and straight.backend.num_loop_closures >= 1
+    assert len(resumed.store) == len(straight.store)
+    np.testing.assert_allclose(resumed.trajectory_array(), straight.trajectory_array(),
+                               atol=1e-4)
+    assert resumed.backend.num_links == straight.backend.num_links
+
+
+def test_jax_checkpoint_loads_into_a_pipelined_port(icra, tmp_path):
+    """A checkpoint written by the JAX package loads into a pipelined port
+    engine (no ``dev_time_origin`` in it: the device clock counts from the
+    last processed stamp), which continues as the port's blocking engine
+    loaded from the same file does (1e-4) and as the JAX engine does
+    (the engine bar)."""
+    je = _jax(icra)
+    _feed(je, icra, range(CUT))
+    je._dev_time_origin = None
+    path = str(tmp_path / "jax.npz")
+    jsave(je, path)
+    runs = {}
+    for pipelined in (False, True):
+        te = load_checkpoint(path, device="cpu")
+        assert te._dev_time_origin == TIMES[CUT - 1]
+        te.pipelined_fetch = pipelined
+        _feed(te, icra, range(CUT, len(ORDER)))
+        te.finish()
+        runs[pipelined] = te
+    _feed(je, icra, range(CUT, len(ORDER)))
+    je.finish()
+    b, p = runs[False].trajectory_array(), runs[True].trajectory_array()
+    np.testing.assert_allclose(p, b, atol=1e-4)
+    a = je.trajectory_array()
+    assert a.shape == p.shape
+    d = np.abs(a[:, 1:3] - p[:, 1:3]).max(1)
+    outliers = (d > POS_TOL) | (_ang(a[:, 3] - p[:, 3]) > ANG_TOL)
+    assert outliers.sum() <= 3 and d.max() <= 0.01, d.max()
+    assert runs[True].backend.num_loop_closures == je.backend.num_loop_closures

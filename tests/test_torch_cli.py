@@ -160,7 +160,7 @@ def test_unported_options_raise(log_path, npz_run, tmp_path, capsys, argv):
     bar (2e-3 m / 2e-3 rad). ``bench`` still raises, naming its ROADMAP item;
     ``simulate`` to ``.rslg`` needs the scene maps and raises without them."""
     if argv[0] == "bench":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1: item 7"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md: the benchmark"):
             main(argv)
         return
     if argv[0] == "simulate":

@@ -1,7 +1,10 @@
 """Port vs JAX package: the slice as a whole. The first 40 scans of the icra
-log go through both engines (blocking, unfused) with the shipped simulation
-profile at a small size, followed by a forced graph optimisation."""
+log go through both engines (blocking, unfused: both pinned to
+``fused_backend=False``, the separate chain batches whose count is compared)
+with the shipped simulation profile at a small size, followed by a forced
+graph optimisation."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -35,7 +38,7 @@ def engines():
     je = J.SlamEngine(J.load_config(SIM_YAML, **OVER), JLaser.from_array(d["laser"]),
                       synchronous_backend=True, fused_backend=False)
     te = T.SlamEngine(T.load_config(SIM_YAML, **OVER), TLaser.from_array(d["laser"]),
-                      device="cpu")
+                      device="cpu", fused_backend=False)
     kept = {"j": [], "t": []}
     for i in range(N_SCANS):
         args = (d["ranges"][i], d["odom"][i], float(d["times"][i]))
@@ -130,7 +133,7 @@ def out_and_back():
     je = J.SlamEngine(J.load_config(SIM_YAML, **over), JLaser.from_array(d["laser"]),
                       synchronous_backend=True, fused_backend=False)
     te = T.SlamEngine(T.load_config(SIM_YAML, **over), TLaser.from_array(d["laser"]),
-                      device="cpu")
+                      device="cpu", fused_backend=False)
     order = list(range(N_SCANS)) + list(range(N_SCANS - 1, -1, -1))
     kept = {}
     for name, eng in (("j", je), ("t", te)):
@@ -239,17 +242,13 @@ def test_device_none_raises_without_a_card():
     ({}, dict(match_map_window=8.0)),
 ])
 def test_unsupported_modes_raise(kwargs, over):
-    """The two engine modes that are not ported (fused, pipelined) raise,
-    naming their ROADMAP item; the options that raised while they were not
-    ported (the asynchronous back end, windowed match, de-distortion,
-    rolling match-map window) now construct and take scans."""
+    """Every engine mode and option that raised while it was not ported (the
+    asynchronous back end, the fused step, the pipelined fetch, windowed
+    match, de-distortion, rolling match-map window) now constructs and takes
+    scans."""
     d = np.load(os.path.join(REPO, "tests", "data", "golden_icra.npz"))
     cfg = T.load_config(SIM_YAML, fine_map_resolution=0.05, world_size=20.0, **over)
     laser = TLaser.from_array(d["laser"])
-    if kwargs.get("fused_backend") or kwargs.get("pipelined_fetch"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 5"):
-            T.SlamEngine(cfg, laser, device="cpu", **kwargs)
-        return
     if "use_odom_correct" in over:
         import dataclasses
         laser = dataclasses.replace(laser, scan_time=0.02)
@@ -259,8 +258,14 @@ def test_unsupported_modes_raise(kwargs, over):
     eng.finish()
     assert len(eng.store) >= 2 and np.isfinite(eng.trajectory_array()).all()
     assert eng.backend.graph.num_vertices == len(eng.store)
-    if kwargs:                                   # the asynchronous back end
+    if kwargs.get("synchronous_backend") is False:
         assert eng._backend_thread is None and eng.diag.backend_batches >= 1
+    if kwargs.get("fused_backend"):              # the default, as in JAX
+        default = inspect.signature(T.SlamEngine).parameters["fused_backend"].default
+        assert eng._fused_backend and default is True
+    if kwargs.get("pipelined_fetch"):
+        assert eng.pipelined_fetch and not eng._inflight
+        assert eng.diag.scans_processed == len(eng.store) == len(eng.trajectory)
     if "match_map_window" in over:
         fs = eng.fspec.fine_spec
         assert fs.width * fs.resolution <= 8.0 + 128 * fs.resolution
