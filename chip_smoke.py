@@ -47,6 +47,17 @@ loaded into a new engine, the other half fed), its pipelined variant against
 the pipelined run, and ``bag_vs_npz`` (the first 120 scans as a bz2-chunked
 ``.bag`` and as ``.npz`` through ``run``).
 
+Three phases run ``parallel/`` on leg 3's state: ``parallel_chain_match``
+(eight of its chains against its newest scan through the sharded gather
+matcher on a one-rank NCCL group and over two gloo ranks sharing the card,
+against the unsharded call; the batched chain matcher with a centre per row
+and the batched scan matcher), ``parallel_spa`` (the edge-sharded solve of
+a 1024-node loop graph and of leg 3's pose graph, one NCCL rank at the full
+budget and two gloo ranks at the scaling workload's, and the dense solve,
+against the single solve) and ``log_odds`` (the log-odds map over leg 3's
+kept scans, the carve kernel against the plain path on the CPU). One card
+cannot show a multi-GPU number: these phases show the mechanics only.
+
 Under each of the three configurations the first scans are also replayed on
 the card and through the plain versions on the CPU, and must agree. Each
 phase prints one JSON line; any failed phase raises and the process exits
@@ -66,6 +77,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from collections import Counter
 from pathlib import Path
@@ -82,6 +94,9 @@ LOOP_LAPS = 1.15          # laps of the 66.3 m centre line driven in leg 3
 ATE_BAR_M = 0.3           # leg 3's bar on the ATE against the simulated truth
 STREAM_DT = 0.01          # leg 5 samples the pose stream at 100 Hz of log time
 SNAPSHOT_EVERY = 50       # leg 5's map snapshot hook: every 50 kept scans
+# offsets of the start poses of a batch of matches (a chain batch holds at most 8)
+NUDGE = [[0, 0, 0], [0.02, 0, 0], [0, 0.02, 0], [0, 0, 0.01],
+         [-0.02, 0, 0], [0, -0.02, 0], [0, 0, -0.01], [0.02, 0.02, 0]]
 # What this script read of the carve and ray-check kernels before their
 # redesign (a warp per beam behind torch's fill with two 64-bit divisions a
 # visit; a warp per ray in rounds of 32 steps with a vote after each, behind a
@@ -364,6 +379,380 @@ def profile_frontend(SlamEngine, config, laser, ranges, odom, times, world_size,
               for e in rows[:12] if dev_time(e) > 0]})
 
 
+def parallel_rank(spec, operands, graphs, budget, device):
+    """One rank of the two-rank run of ``parallel_chain_match`` and
+    ``parallel_spa`` (gloo, both ranks on card 0, started by
+    ``multihost.launch_local``): the sharded gather matcher on this rank's
+    half of the chains, then each graph solved with its edges sharded over
+    both ranks at ``budget`` (LM, CG iterations), on ``device``."""
+    from roborts_slam_tpu_torch.backend import spa
+    from roborts_slam_tpu_torch.parallel.dist_spa import solve_pose_graph_sharded
+    from roborts_slam_tpu_torch.parallel.mesh import make_mesh
+    from roborts_slam_tpu_torch.parallel.sharded_match import (
+        make_sharded_chain_matcher_gather,
+    )
+
+    dev = torch.device(device)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    ops = tuple(o.to(dev) if isinstance(o, torch.Tensor) else o for o in operands)
+    mesh = make_mesh(axis_name="data", device=dev)
+    sync()
+    t0 = time.perf_counter()
+    rows = make_sharded_chain_matcher_gather(spec, mesh)(*ops)
+    sync()
+    out = {"gather": rows, "gather_s": time.perf_counter() - t0,
+           "gather_all_reduces": mesh.all_reduces, "spa": []}
+    gmesh = make_mesh(axis_name="graph", device=dev)
+    for data in graphs:
+        syncs, reduces = spa.host_syncs, gmesh.all_reduces
+        sync()
+        t0 = time.perf_counter()
+        poses, cost, iters = solve_pose_graph_sharded(data, gmesh, "graph", *budget)
+        sync()
+        out["spa"].append({"poses": poses, "cost": cost, "iters": iters,
+                           "seconds": time.perf_counter() - t0,
+                           "host_syncs": spa.host_syncs - syncs,
+                           "all_reduces": gmesh.all_reduces - reduces})
+    return out
+
+
+def parallel_phases(eng3, rr_config, rr_fspec, rr_bspec, dev, acct, backend=None):
+    """``parallel/`` on leg 3's final state (``eng3``), first correlation
+    kernel: the phases ``parallel_chain_match``, ``parallel_spa`` and
+    ``log_odds``. The card is one: a one-rank group in this process
+    (``backend`` None: NCCL), and two gloo ranks that share the device (NCCL
+    refuses two ranks on one device), started as processes; no multi-GPU
+    number can come from it. ``acct`` carries the launch accounting of
+    ``main`` (``reset_counts``, ``read_counts``, ``read_shapes``,
+    ``shapes_said``, ``account``, ``relist`` and the real-robot context
+    ``ctx``); every launch of a phase, in this process or in a rank, is
+    counted by shape and held against the plain versions."""
+    import torch.distributed as dist
+
+    from roborts_slam_tpu_torch.backend import spa
+    from roborts_slam_tpu_torch.backend.processor import chain_match_batch_gather
+    from roborts_slam_tpu_torch.models.grid_map import (
+        log_odds_map_states, make_log_odds_map,
+    )
+    from roborts_slam_tpu_torch.ops.raster import update_log_odds_map
+    from roborts_slam_tpu_torch.parallel import multihost
+    from roborts_slam_tpu_torch.parallel.dist_spa import solve_pose_graph_sharded
+    from roborts_slam_tpu_torch.parallel.mesh import make_mesh
+    from roborts_slam_tpu_torch.parallel.sharded_match import (
+        make_batched_chain_matcher, make_batched_scan_matcher,
+        make_sharded_chain_matcher_gather,
+    )
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    PAR, PSPA, LOGODDS = "parallel_chain_match", "parallel_spa", "log_odds"
+    B_PAR = 8
+    on_cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t
+    n3 = len(eng3.store)
+    dpts3, dmsk3, dposes3 = (t[:n3] for t in eng3.store.device_arrays())
+    newest = n3 - 1
+    newest_pose = dposes3[newest]
+    # eight chains of up to 16 consecutive kept scans (max_chain_scans) whose
+    # scans lie within the link radius of the newest scan, nearest first
+    K = rr_config.max_chain_scans
+    xy = eng3.store.poses_array()[:, :2]
+    dist_m = np.linalg.norm(xy - xy[newest], axis=1)
+    for radius in (rr_config.link_scan_max_distance, 2 * rr_config.link_scan_max_distance,
+                   np.inf):
+        near = [i for i in range(newest) if dist_m[i] <= radius]
+        runs, run = [], []
+        for i in near:
+            if run and (i != run[-1] + 1 or len(run) == K):
+                runs.append(run)
+                run = []
+            run.append(i)
+        runs.append(run)
+        runs = [r for r in runs if r]
+        if len(runs) >= B_PAR:
+            break
+    runs = sorted(runs, key=lambda r: float(dist_m[r].mean()))[:B_PAR]
+    assert len(runs) == B_PAR, f"{len(runs)} chains in the store"
+    chain_ids = torch.full((B_PAR, K), -1, dtype=torch.int64, device=dev)
+    for b, r in enumerate(runs):
+        chain_ids[b, :len(r)] = torch.as_tensor(r, device=dev)
+    inits = newest_pose[None] + torch.as_tensor(NUDGE[:B_PAR], **f32)
+    pub_spec3, hits3, passes3, pub_off3 = eng3.store.pub_map_arrays()
+    gather_ops = (dpts3, dmsk3, dposes3, chain_ids, newest, eng3.store.n_valid(newest),
+                  inits, newest_pose, hits3, passes3, pub_off3)
+    graph_1024 = multihost.make_synthetic_loop_graph(1024, device=dev)
+    # leg 3's pose graph. Its final poses are this graph's optimum (the
+    # closure's solve corrected them): solved from there, every LM step sits
+    # in the flat valley where a change in the order of the float sums flips
+    # accept/reject decisions, and two single solves part by up to ~1.5e-3 m
+    # (printed as ``converged_start_two_single_solves``). The solves start
+    # from those poses perturbed (seed 0; node 0 kept), off the optimum as a
+    # closure's solve starts
+    graph_leg3_opt = eng3.backend.graph.as_solver_data(eng3.store.poses_array(), dev)
+    start_noise = np.random.default_rng(0).normal(0, [0.05, 0.05, 0.01], (n3, 3))
+    start_noise[0] = 0
+    graph_leg3 = graph_leg3_opt._replace(
+        poses=graph_leg3_opt.poses + torch.as_tensor(start_noise, **f32))
+    budget_full, budget_scaling = (50, 100), (10, 25)     # spa_scaling_workload's
+    acct.relist(PAR, ("corr", "check"), lambda key: True)
+    acct.relist(LOGODDS, ("mark",), lambda key: True)
+
+    # the two gloo ranks first: their chain matches and sharded solves
+    acct.reset_counts()
+    t1 = time.perf_counter()
+    two = multihost.launch_local(
+        "chip_smoke:parallel_rank", 2,
+        args=(rr_bspec, tuple(on_cpu(t) for t in gather_ops),
+              [g._replace(**{k: on_cpu(v) for k, v in g._asdict().items()})
+               for g in (graph_1024, graph_leg3)], budget_scaling, str(dev)),
+        backend="gloo", timeout=400)
+    two_s = time.perf_counter() - t1
+    # this process: a one-rank NCCL group on the card
+    multihost.initialize_distributed(f"127.0.0.1:{multihost.free_port()}", 1, 0, backend)
+    mesh1 = make_mesh(axis_name="data", device=dev)
+    gmesh1 = make_mesh(axis_name="graph", device=dev)
+    warm = torch.ones(3, **f32)
+    gmesh1.all_reduce(warm, "graph")            # the communicator is made here
+    gmesh1.all_reduces = 0
+    sync()
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    single, single_s = timed(lambda: chain_match_batch_gather(rr_bspec, *gather_ops))
+    one, one_s = timed(lambda: make_sharded_chain_matcher_gather(rr_bspec, mesh1)(*gather_ops))
+    gather_reduces = mesh1.all_reduces
+    # per-row centres: row b's chain around init b, the newest scan
+    chain_rows = (dpts3[chain_ids.clamp(min=0)],
+                  dmsk3[chain_ids.clamp(min=0)] & (chain_ids >= 0)[..., None],
+                  dposes3[chain_ids.clamp(min=0)], chain_ids >= 0,
+                  dpts3[newest][None].expand(B_PAR, -1, -1),
+                  dmsk3[newest][None].expand(B_PAR, -1),
+                  torch.full((B_PAR,), eng3.store.n_valid(newest)), inits, inits)
+    chain_args = (rr_bspec.coarse_spec, rr_bspec.fine_spec, rr_bspec.matcher,
+                  rr_config.coarse_map_use_blur, rr_config.fine_map_use_blur)
+    rows_none, rows_none_s = timed(lambda: make_batched_chain_matcher(*chain_args)(*chain_rows))
+    rows_one = make_batched_chain_matcher(*chain_args, mesh=mesh1)(*chain_rows)
+    # eight of leg 3's newest kept scans against its fine map, from their poses
+    # nudged
+    last8 = torch.arange(n3 - B_PAR, n3, device=dev)
+    scan_ops = (eng3.state.fine.probs, eng3.state.fine.offset, eng3.state.coarse.probs,
+                eng3.state.coarse.offset, dpts3[last8], dmsk3[last8],
+                torch.as_tensor([eng3.store.n_valid(int(i)) for i in last8]),
+                dposes3[last8] + torch.as_tensor(NUDGE[:B_PAR], **f32))
+    scan_args = (rr_fspec.fine_spec, rr_fspec.coarse_spec, rr_fspec.matcher)
+    scans_none, scans_none_s = timed(lambda: make_batched_scan_matcher(*scan_args)(*scan_ops))
+    scans_one = make_batched_scan_matcher(*scan_args, mesh=mesh1)(*scan_ops)
+    sync()
+    shapes_par = acct.read_shapes()
+    # the ranks' launches join this process's
+    for r in two:
+        for kind, by in r.launch_shapes.items():
+            for k, v in by.items():
+                shapes_par[kind][k] = shapes_par[kind].get(k, 0) + v
+    # the same functions through the plain versions on the CPU
+    rows_cpu = make_batched_chain_matcher(*chain_args)(*(on_cpu(t) for t in chain_rows))
+    scans_cpu = make_batched_scan_matcher(*scan_args)(*(on_cpu(t) for t in scan_ops))
+
+    def diffs(got, want):
+        return {"pose": pose_diff(got[0].cpu(), want[0].cpu()),
+                "score": float((got[1].cpu() - want[1].cpu()).abs().max()),
+                "cov_xy_rel": float(((got[2][:, :2, :2].cpu() - want[2][:, :2, :2].cpu()).abs()
+                                     / want[2][:, :2, :2].cpu().abs().clamp(min=1e-9)).max()),
+                "bit_equal": all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want))}
+
+    gather_two = [r.result["gather"] for r in two]
+    par = {
+        "chains": [len(r) for r in runs], "chain_first_ids": [r[0] for r in runs],
+        "scan_id": newest, "max_chain_scans": K,
+        "gather_unsharded_s": single_s, "gather_one_rank_nccl_s": one_s,
+        "gather_one_rank_all_reduces": gather_reduces,
+        "gather_two_rank_gloo_s": [r.result["gather_s"] for r in two],
+        "gather_two_rank_all_reduces": [r.result["gather_all_reduces"] for r in two],
+        "two_rank_launch_s": two_s, "two_rank_seconds": [r.seconds for r in two],
+        "two_ranks_bit_equal": all(torch.equal(a, b) for a, b in zip(*gather_two)),
+        "one_rank_vs_unsharded": diffs(one, single),
+        "two_rank_vs_unsharded": diffs(gather_two[0], single),
+        "scores": single[1].tolist(),
+        "batched_chain_rows_s": rows_none_s,
+        "batched_chain_one_rank_vs_none": diffs(rows_one, rows_none),
+        "batched_chain_card_vs_cpu_plain": diffs(rows_none, rows_cpu),
+        "batched_chain_scores": rows_none[1].tolist(),
+        "batched_scan_s": scans_none_s,
+        "batched_scan_one_rank_vs_none": diffs(scans_one, scans_none),
+        "batched_scan_card_vs_cpu_plain": diffs(scans_none, scans_cpu),
+        "batched_scan_scores": scans_none[1].tolist(),
+        "launches_by_shape": acct.shapes_said(shapes_par),
+        "launches_by_shape_in_ranks": [acct.shapes_said(r.launch_shapes) for r in two]}
+    emit({"phase": PAR, "corr_kernel": 1, "chain_batch": B_PAR, **par})
+    assert par["two_ranks_bit_equal"], "the two ranks gathered other rows"
+    for key in ("one_rank_vs_unsharded", "two_rank_vs_unsharded"):
+        assert par[key]["pose"] <= 5e-6 and par[key]["score"] <= 2e-5, (key, par[key])
+    for key in ("batched_chain_one_rank_vs_none", "batched_scan_one_rank_vs_none"):
+        assert par[key]["bit_equal"], key
+    for key in ("batched_chain_card_vs_cpu_plain", "batched_scan_card_vs_cpu_plain"):
+        assert par[key]["pose"] <= POS_TOL, (key, par[key])
+    for got in (single, rows_none, scans_none):
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        assert bool(((got[1] >= 0) & (got[1] <= 1)).all()), got[1]
+    assert gather_reduces == 1 and all(r.result["gather_all_reduces"] == 1 for r in two)
+    # every launch of the phase, counted by shape: three tiers per chain batch
+    # (B=8 twice here, B=4 once in each rank) and per row of the batched
+    # matchers (twice each here), one ray check per chain batch
+    corr_by_b = Counter()
+    for k, v in shapes_par["corr"].items():
+        assert k[0] == 1, f"{PAR}: second kernel launched"
+        corr_by_b[k[1], k[5:]] += v
+    chain_hw = (rr_bspec.fine_spec.height, rr_bspec.fine_spec.width)
+    front_hw = (rr_fspec.fine_spec.height, rr_fspec.fine_spec.width)
+    assert corr_by_b == {(8, chain_hw): 6, (4, chain_hw): 6,
+                         (1, chain_hw): 2 * 3 * B_PAR, (1, front_hw): 2 * 3 * B_PAR}, corr_by_b
+    assert sorted((k[0], v) for k, v in shapes_par["check"].items()) == [(4, 2), (8, 2)], \
+        shapes_par["check"]
+    assert not shapes_par["mark"], shapes_par["mark"]
+    acct.account(PAR, shapes_par, acct.ctx)
+
+    @contextlib.contextmanager
+    def deterministic():
+        """``torch.use_deterministic_algorithms`` inside the block: the
+        card's ``index_add_`` then sums in a fixed order (warnings for ops
+        that have no such mode, the cuBLAS products, silenced)."""
+        before = (torch.are_deterministic_algorithms_enabled(),
+                  torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message=".*deterministic.*")
+                yield
+        finally:
+            torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+    def compared(got, ref):
+        (gp, gc), (rp, rc) = got, ref
+        return {"max_pose_diff": pose_diff(gp.cpu(), rp.cpu()),
+                "cost_diff": abs(float(gc) - float(rc)),
+                "bit_equal": torch.equal(gp, rp.to(gp.device)) and torch.equal(gc, rc.to(gc.device))}
+
+    def within_bars(d, ref_cost):
+        """The bars of tests/test_parallel.py:22-24: cost within 1e-3
+        relative (the exact loop graph's optimum is near 0: 1e-6 absolute
+        there), poses within 1e-3."""
+        return d["cost_diff"] <= 1e-3 * abs(float(ref_cost)) + 1e-6 and d["max_pose_diff"] <= 1e-3
+
+    # the solves: one NCCL rank at the full budget, two gloo ranks at the
+    # scaling workload's, each against the single solve at the same budget.
+    # The card's segment sums (index_add_) add in atomic order, so two solves
+    # of one graph part in the last bits, and 50 LM iterations in a flat
+    # valley carry that to ~1e-3: the full-budget single solve runs under
+    # deterministic algorithms, the one-rank solve once so (the same sums:
+    # bit for bit) and once in the default mode, whose distance is reported
+    # beside the cost bar
+    spa_said = {}
+    for gi, (gname, g) in enumerate((("loop_1024", graph_1024), ("leg3", graph_leg3))):
+        said = {"nodes": int(g.poses.shape[0]), "edges": int(g.edge_ij.shape[0])}
+        refs = {}
+        syncs = spa.host_syncs
+        (p, c, it), sec = timed(lambda: spa.solve_pose_graph(g, *budget_scaling))
+        said["single_scaling"] = {"seconds": sec, "iters": it, "cost": float(c),
+                                  "host_syncs": spa.host_syncs - syncs}
+        refs["scaling"] = (p, c)
+        syncs, reduces = spa.host_syncs, gmesh1.all_reduces
+        (p1, c1, it1), sec = timed(lambda: solve_pose_graph_sharded(g, gmesh1, "graph",
+                                                                    *budget_full))
+        one_said = {"seconds": sec, "iters": it1, "cost": float(c1),
+               "host_syncs": spa.host_syncs - syncs, "all_reduces": gmesh1.all_reduces - reduces}
+        with deterministic():
+            syncs = spa.host_syncs
+            (pd_, cd_, itd), sec = timed(lambda: spa.solve_pose_graph(g, *budget_full))
+            said["single_full_deterministic"] = {"seconds": sec, "iters": itd, "cost": float(cd_),
+                                                 "host_syncs": spa.host_syncs - syncs}
+            (pd1, cd1, _), sec_one = timed(lambda: solve_pose_graph_sharded(
+                g, gmesh1, "graph", *budget_full))
+        refs["full"] = (pd_, cd_)
+        one_said.update(compared((p1, c1), refs["full"]))
+        assert one_said["cost_diff"] <= 1e-3 * abs(float(cd_)) + 1e-6, (gname, one_said)
+        one_said["deterministic"] = {"seconds": sec_one, **compared((pd1, cd1), refs["full"])}
+        assert within_bars(one_said["deterministic"], cd_), (gname, one_said)
+        said["one_rank_nccl_full"] = one_said
+        ranks = [r.result["spa"][gi] for r in two]
+        said["two_rank_gloo_scaling"] = {
+            "seconds": [r["seconds"] for r in ranks], "iters": [r["iters"] for r in ranks],
+            "cost": float(ranks[0]["cost"]), "host_syncs": [r["host_syncs"] for r in ranks],
+            "all_reduces": [r["all_reduces"] for r in ranks],
+            "ranks_bit_equal": torch.equal(ranks[0]["poses"], ranks[1]["poses"])
+            and torch.equal(ranks[0]["cost"], ranks[1]["cost"])
+            and ranks[0]["iters"] == ranks[1]["iters"],
+            **compared((ranks[0]["poses"], ranks[0]["cost"]), refs["scaling"])}
+        assert within_bars(said["two_rank_gloo_scaling"], refs["scaling"][1]), \
+            (gname, said["two_rank_gloo_scaling"])
+        assert said["two_rank_gloo_scaling"]["ranks_bit_equal"], gname
+        if gname == "leg3":
+            conv = [spa.solve_pose_graph(graph_leg3_opt, *budget_scaling) for _ in range(2)]
+            said["converged_start_two_single_solves"] = compared(conv[0][:2], conv[1][:2])
+            syncs = spa.host_syncs
+            (pd, cd), sec = timed(lambda: spa.solve_pose_graph_dense(g))
+            rp, rc = refs["full"]
+            said["dense"] = {"seconds": sec, "host_syncs": spa.host_syncs - syncs,
+                             "cost": float(cd), "max_pose_diff": pose_diff(pd.cpu(), rp.cpu()),
+                             "cost_rel_diff": abs(float(cd) - float(rc)) / abs(float(rc))}
+            said["dense"]["within_1e-3"] = (said["dense"]["cost_rel_diff"] <= 1e-3
+                                            and said["dense"]["max_pose_diff"] <= 1e-3)
+            # another algorithm than the PCG solve: the JAX package's bar for
+            # dense against PCG (tests/test_spa.py:85-91), 5 % and 0.05 m
+            assert said["dense"]["cost_rel_diff"] < 0.05 and \
+                said["dense"]["max_pose_diff"] < 0.05, said["dense"]
+        spa_said[gname] = said
+    emit({"phase": PSPA, "budgets": {"full": list(budget_full), "scaling": list(budget_scaling)},
+          **spa_said})
+    dist.destroy_process_group()
+    del mesh1, gmesh1
+
+    # the log-odds map over leg 3's kept scans at their final poses, on the
+    # card (the carve kernel) and through the plain path on the CPU
+    acct.reset_counts()
+    maps = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        lmap = make_log_odds_map(pub_spec3, pub_off3.to(d), d)
+        pts_, msk_, poses_ = dpts3.to(d), dmsk3.to(d), dposes3.to(d)
+        sync()
+        t = time.perf_counter()
+        for i in range(n3):
+            update_log_odds_map(pub_spec3, lmap, pts_[i], msk_[i], poses_[i])
+        sync()
+        maps[where] = (lmap, time.perf_counter() - t)
+        if where == "card":
+            shapes_lo = acct.read_shapes()
+    st_card = log_odds_map_states(maps["card"][0]).cpu()
+    st_cpu = log_odds_map_states(maps["cpu"][0])
+    lo = {"scans": n3, "pub_map": [pub_spec3.height, pub_spec3.width],
+          "card_s": maps["card"][1], "cpu_plain_s": maps["cpu"][1],
+          "states_differing": int((st_card != st_cpu).sum()),
+          "log_odds_max_abs_diff": float((maps["card"][0].log_odds.cpu()
+                                          - maps["cpu"][0].log_odds).abs().max()),
+          "cells": {str(v): int((st_card == v).sum()) for v in (-1, 0, 100)},
+          "launches": acct.read_counts(), "launches_by_shape": acct.shapes_said(shapes_lo)}
+    emit({"phase": LOGODDS, **lo})
+    assert lo["states_differing"] == 0, "log-odds states differ"
+    assert lo["cells"]["100"] > 0 and lo["cells"]["0"] > 0
+    assert sum(shapes_lo["mark"].values()) == n3 and not shapes_lo["corr"] \
+        and not shapes_lo["check"], shapes_lo
+    acct.account(LOGODDS, shapes_lo, acct.ctx)
+    del maps, st_card, st_cpu, dpts3, dmsk3, dposes3, graph_1024, graph_leg3, graph_leg3_opt, two
+    del single, one, rows_none, rows_one, scans_none, scans_one, chain_rows, scan_ops
+    del gather_ops, hits3, passes3
+
+
+def pose_diff(a, b):
+    """max |Δ| of two (N, 3) pose tensors, angles wrapped (±π agree)."""
+    d = (a - b).abs()
+    d[:, 2] = torch.atan2(torch.sin(d[:, 2]), torch.cos(d[:, 2])).abs()
+    return float(d.max())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -639,8 +1028,6 @@ def main() -> int:
                 cfg.map_min_passthrough, cfg.map_occu_threshold, thr_d2)
 
     Q = 12                 # the scan every comparison matches or carves
-    NUDGE = [[0, 0, 0], [0.02, 0, 0], [0, 0.02, 0], [0, 0, 0.01],
-             [-0.02, 0, 0], [0, -0.02, 0], [0, 0, -0.01], [0.02, 0.02, 0]]
 
     def start_poses(scans, B):
         """The pose the comparisons start scan ``Q`` from, and ``B`` start
@@ -816,6 +1203,7 @@ def main() -> int:
     # leg 3: 640² window map, 1024² chain maps and pub map, second kernel
     ctx_rr = compare_config("rr_", rr_config, rr_fspec, rr_bspec.fine_spec,
                             loop_scans, K2, LEG3, LEG3)[0]
+    ctx_rr1 = {**ctx_rr, "listed": K1}       # the real-robot shapes, first kernel
     # leg 4: 4096² fine map, 896² pub map, first kernel; its 200 scans
     # propose no chain match (the windowed short leg matches one 2432² map,
     # the shape of the simulation profile's single chain map)
@@ -1113,6 +1501,30 @@ def main() -> int:
             assert e["launches"] > 0 or key in optional, \
                 f"{e['name']}: not launched on {leg}"
 
+    def relist_rr_k1(phase, kinds, optional_if):
+        """The real-robot entries of ``kinds`` ("corr": the first kernel's
+        correlation rows; "mark", "check") listed again for ``phase``'s
+        launches, which run the first kernel on those shapes. A copy is
+        optional (``phase`` need not launch it) where ``optional_if(key)``."""
+        def copy(key, e, counted):
+            new = f"{key}@{phase}"
+            entries[new] = {**e, "launches": 0, "launches_from": phase,
+                            "name": e["name"][:-1] + f"@{phase}]"}
+            counted_as[new] = counted
+            if optional_if(key):
+                optional.add(new)
+
+        for key, e in list(entries.items()):
+            kind = counted_as[key][0]
+            if key.startswith("rr_") and "@" not in key and kind != "corr" and kind in kinds:
+                copy(key, e, counted_as[key])
+        if "corr" in kinds:
+            for e in both_kernels:
+                if e["name"].startswith(K1["name"] + "[rr_"):
+                    copy(e["name"][len(K1["name"]) + 1:-1],
+                         {k: v for k, v in e.items() if k != "max_abs_k2_minus_k1"},
+                         ("corr", 1, *e["shape"]))
+
     # ---- phase 4: the main path at full width ----
     # 70 scans out, then the same 70 in reverse order with times continuing
     # upward: an out-and-back run over identical poses
@@ -1393,6 +1805,11 @@ def main() -> int:
     account(LEG3, shapes3, ctx_rr)
     traj3 = eng3.trajectory_array()
     graph3 = sorted((e.source, e.target) for e in eng3.backend.graph.edges)
+
+    # ---- phases 7a-c: parallel/ on leg 3's state (first kernel) ----
+    parallel_phases(eng3, rr_config, rr_fspec, rr_bspec, dev, types.SimpleNamespace(
+        reset_counts=reset_counts, read_counts=read_counts, read_shapes=read_shapes,
+        shapes_said=shapes_said, account=account, relist=relist_rr_k1, ctx=ctx_rr1))
     del eng3
 
     # ---- phase 7b: leg 3's log and profile through the API in the JAX
@@ -1632,22 +2049,9 @@ def main() -> int:
 
     # the carve and ray-check entries of the real-robot shapes, and the first
     # kernel's correlation entries there, listed again for leg 5's launches
-    for key in [k for k in entries if k.startswith("rr_")]:
-        if entries[key]["name"].startswith(K2["name"] + "["):
-            continue
-        entries[f"{key}@{LEG5}"] = {**entries[key], "launches": 0, "launches_from": LEG5,
-                                    "name": entries[key]["name"][:-1] + f"@{LEG5}]"}
-        counted_as[f"{key}@{LEG5}"] = counted_as[key]
-        if key in optional:
-            optional.add(f"{key}@{LEG5}")
-    for e in both_kernels:
-        if e["name"].startswith(K1["name"] + "[rr_"):
-            key = e["name"][len(K1["name"]) + 1:-1] + f"@{LEG5}"
-            entries[key] = {k: v for k, v in e.items() if k != "max_abs_k2_minus_k1"}
-            entries[key].update(launches=0, launches_from=LEG5)
-            counted_as[key] = ("corr", 1, *e["shape"])
-            if "chain_b" in key:      # the worker's batch sizes vary with its drains
-                optional.add(key)
+    # (the worker's chain batch sizes vary with its drains)
+    relist_rr_k1(LEG5, ("corr", "mark", "check"),
+                 lambda key: key in optional or "chain_b" in key)
     with corr_kernel(1):
         eng5, report5, shapes5 = run_cli(
             ["run", rslg_path, "--config", rr_yaml, "--async", "--out-map", out_map,
@@ -1706,7 +2110,6 @@ def main() -> int:
     assert np.array_equal(back.store.poses_array(), eng5.store.poses_array())
     assert torch.equal(back.state.pub.hits, live.hits)
     del back, eng5, live, hits5, passes5, dpts, dmsk, dposes
-    ctx_rr1 = {**ctx_rr, "listed": K1}       # the real-robot shapes, first kernel
     account(LEG5, shapes5, ctx_rr1)
 
     # ---- phase 11: checkpoint and resume against leg 3's straight run ----
@@ -1827,7 +2230,9 @@ def main() -> int:
               LEG2: ("correlation_scores[chain",),
               LEG3: ("correlation_scores_v2[", "ray_mark_image[", "bad_ray_count["),
               LEG4: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
-              LEG5: ("correlation_scores[", "ray_mark_image[", "bad_ray_count[")}
+              LEG5: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
+              "parallel_chain_match": ("correlation_scores[", "bad_ray_count["),
+              "log_odds": ("ray_mark_image[",)}
     for leg, names in on_leg.items():
         for name in names:
             assert any(e["launches_from"] == leg and e["name"].startswith(name)

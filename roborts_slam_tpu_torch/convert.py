@@ -1,8 +1,9 @@
 """Carry state across from the JAX package.
 
-This system has no weights; the front-end state (maps, pose, counters) and
-the scan store are what a run carries. The caller fetches the JAX package's
-arrays to NumPy and hands them over by name — nothing here imports JAX.
+This system has no weights; the front-end state (maps, pose, counters), the
+scan store, a pose graph's solver data and a log-odds map are what a run
+carries. The caller fetches the JAX package's arrays to NumPy and hands them
+over by name — nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -10,8 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .backend.spa import PoseGraphData
 from .frontend.processor import FrontendState
-from .models.grid_map import CountMap, ProbMap
+from .models.grid_map import CountMap, LogOddsMap, ProbMap
 
 STATE_KEYS = (
     "pub_hits", "pub_passes", "pub_offset",
@@ -62,3 +64,26 @@ def store_from_jax(arrays: dict[str, np.ndarray], max_points: int, device):
                   int(arrays["n_valid"][i]), arrays["poses"][i],
                   arrays["odoms"][i], float(arrays["times"][i]))
     return store
+
+
+def pose_graph_from_jax(arrays: dict[str, np.ndarray], device) -> PoseGraphData:
+    """The port's ``PoseGraphData`` from the JAX ``PoseGraphData``'s fields
+    as NumPy arrays by name (``poses``, ``node_mask``, ``edge_ij``,
+    ``edge_rel``, ``edge_info``, ``edge_mask``), padding included, on
+    ``device``. Edge ids become int64 (the port's index type)."""
+    missing = [k for k in PoseGraphData._fields if k not in arrays]
+    if missing:
+        raise KeyError(f"pose_graph_from_jax: missing {missing}")
+    t = lambda k, dt: torch.as_tensor(np.array(arrays[k]), dtype=dt, device=device)
+    return PoseGraphData(
+        poses=t("poses", torch.float32), node_mask=t("node_mask", torch.bool),
+        edge_ij=t("edge_ij", torch.int64), edge_rel=t("edge_rel", torch.float32),
+        edge_info=t("edge_info", torch.float32), edge_mask=t("edge_mask", torch.bool))
+
+
+def log_odds_map_from_jax(arrays: dict[str, np.ndarray], device) -> LogOddsMap:
+    """The port's ``LogOddsMap`` from the JAX one's ``log_odds`` (H, W) and
+    ``offset`` (2,), as NumPy arrays, on ``device``."""
+    return LogOddsMap(
+        log_odds=torch.tensor(np.asarray(arrays["log_odds"], np.float32), device=device),
+        offset=torch.tensor(np.asarray(arrays["offset"], np.float32), device=device))

@@ -10,6 +10,8 @@ Counterpart of the JAX package's ``models/grid_map.py`` (the reference's
 - ``ProbMap``  ≈ ProbabilityCell map (ScanMatchMap, slam_map.h:34): one f32
   prob plane maintained by max-merge blur stamping only.
 - ``CountMap`` ≈ CountCell map (PubMap, slam_map.h:35): hit/pass planes.
+- ``LogOddsMap`` ≈ LogOddsCell map: one log-odds plane (not used by the
+  engine).
 - The world↔map affine keeps the reference convention
   ``map_xy = (world_xy + offset) / resolution`` (grid_map_base.h:68-93).
 - Spec shapes keep the JAX package's rounding to multiples of ``TILE``:
@@ -137,6 +139,43 @@ def world_to_map_pose(offset, inv_res: float, pose):
 def map_to_world_pose(offset, inv_res: float, pose):
     xy = pose[..., :2] / inv_res - offset
     return torch.cat([xy, pose[..., 2:3]], dim=-1)
+
+
+class LogOddsMap(NamedTuple):
+    """Log-odds occupancy plane (LogOddsCell, grid_map_cell.h:166-296 —
+    defined by the reference but unused by its map aliases; provided for
+    parity and as the standard alternative pub-map cell model)."""
+
+    log_odds: torch.Tensor   # (H, W) f32
+    offset: torch.Tensor     # (2,) f32
+
+
+def make_log_odds_map(spec: CountMapSpec, offset, device) -> LogOddsMap:
+    return LogOddsMap(
+        log_odds=torch.zeros((spec.height, spec.width), dtype=torch.float32,
+                             device=device),
+        offset=torch.as_tensor(offset, dtype=torch.float32, device=device),
+    )
+
+
+def prob_to_log_odds(p):
+    """ProbToLogOdds (grid_map_cell.h:286-292)."""
+    p = torch.as_tensor(p)
+    return torch.log(p / (1.0 - p))
+
+
+def log_odds_to_prob(lo):
+    """GetGridProbability (grid_map_cell.h:84-89): odds/(1+odds)."""
+    odds = torch.exp(torch.as_tensor(lo))
+    return odds / (1.0 + odds)
+
+
+def log_odds_map_states(lmap: LogOddsMap, occu_threshold: float = 0.5):
+    """GridStates (grid_map_cell.h:100-108): -1 unknown (untouched),
+    0 free, 100 occupied."""
+    p = log_odds_to_prob(lmap.log_odds)
+    unknown = lmap.log_odds == 0.0
+    return torch.where(unknown, -1, torch.where(p >= occu_threshold, 100, 0)).to(torch.int32)
 
 
 def count_map_probs(cmap: CountMap, default_prob: float = 0.5):

@@ -6,13 +6,17 @@ reference's ``RangeDataContainer2d`` / ``LaserRangeFinder``
 front-packed point arrays in the sensor-local frame (``max_points``
 padding); they are packed on the host with NumPy and uploaded once by the
 engine. Per-map scaling by ``1/resolution`` happens inside the ops.
+``Scan`` / ``scan_from_ranges`` hold one scan as tensors on a device, for
+callers outside the engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +62,27 @@ class LaserModel:
         )
 
 
+class Scan(NamedTuple):
+    """One laser scan with a fixed-shape masked point set.
+
+    points: (P, 2) float32 — cartesian points in the sensor-local frame (m).
+    mask:   (P,) bool — valid-point mask (padding is False).
+    pose:   (3,) float32 — sensor pose in world (estimated by SLAM).
+    odom:   (3,) float32 — odometry pose at capture time.
+    time:   () float32 — timestamp (s).
+    """
+
+    points: torch.Tensor
+    mask: torch.Tensor
+    pose: torch.Tensor
+    odom: torch.Tensor
+    time: torch.Tensor
+
+    @property
+    def num_valid(self):
+        return torch.sum(self.mask.to(torch.int32))
+
+
 def pack_points(pts: np.ndarray, max_points: int):
     """Front-pack a (N, 2) valid-point array into fixed-shape
     (points (max_points, 2), mask (max_points,), n)."""
@@ -86,3 +111,35 @@ def ranges_to_packed(ranges: np.ndarray, laser: LaserModel,
     a = angles[valid]
     pts = np.stack([r * np.cos(a), r * np.sin(a)], axis=-1)
     return pack_points(pts, max_points)
+
+
+def scan_from_ranges(ranges: np.ndarray, laser: LaserModel, odom_pose: np.ndarray,
+                     timestamp: float, max_points: int,
+                     pose: np.ndarray | None = None, device=None) -> Scan:
+    """Polar → cartesian with range gating (``ranges_to_packed``), as a
+    ``Scan`` of tensors on ``device`` (None: the card, or raises); ``pose``
+    defaults to the odometry pose."""
+    from ..engine import resolve_device
+
+    dev = resolve_device(device)
+    points, mask, _ = ranges_to_packed(ranges, laser, max_points)
+    if pose is None:
+        pose = odom_pose
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return Scan(points=f32(points), mask=torch.as_tensor(mask, device=dev),
+                pose=f32(pose), odom=f32(odom_pose), time=f32(timestamp))
+
+
+def barycenter_pose(points, mask, pose):
+    """Barycenter pose: centroid of the world-frame points with the sensor
+    yaw (reference ``UpdateBarycenterPose``, sensor_data_manager.h:214-238).
+    points (P,2), mask (P,), pose (3,); with leading batch dims each scan
+    gets its own centroid (the JAX function's divisor counts the valid
+    points of the whole batch)."""
+    from ..utils.geometry import transform_points
+
+    w = mask.to(points.dtype)
+    world = transform_points(pose, points)
+    denom = torch.clamp(torch.sum(w, dim=-1), min=1.0)
+    centroid = torch.sum(world * w[..., None], dim=-2) / denom[..., None]
+    return torch.stack([centroid[..., 0], centroid[..., 1], pose[..., 2]], dim=-1)

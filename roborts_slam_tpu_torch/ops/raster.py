@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..models.grid_map import (
-    CountMap, CountMapSpec, ProbMap, ProbMapSpec, world_to_map_pose,
+    CountMap, CountMapSpec, LogOddsMap, ProbMap, ProbMapSpec, world_to_map_pose,
 )
 from ..utils.geometry import transform_points
 from .cuda.raycarve import ray_mark_image
@@ -50,6 +50,21 @@ def _scan_cells(inv_res: float, offset, points, mask, pose_world):
     start = _cell_round(pose_map[..., :2])
     same = torch.all(end == start[..., None, :], dim=-1)
     return start, end, mask & ~same
+
+
+def endpoint_image(spec: ProbMapSpec, offset, points, mask, pose_world):
+    """Scatter beam endpoints (world-frame scan at ``pose_world``) into a
+    binary (H, W) indicator image. Beams whose endpoint cell equals the
+    sensor cell are skipped (occu_grid_map.h:312)."""
+    _, end, valid = _scan_cells(spec.inv_res, offset, points, mask, pose_world)
+    end = end.to(torch.int64)
+    valid = valid & (end[:, 0] >= 0) & (end[:, 0] < spec.width)
+    valid = valid & (end[:, 1] >= 0) & (end[:, 1] < spec.height)
+    flat = torch.where(valid, end[:, 1] * spec.width + end[:, 0], 0)
+    img = torch.zeros((spec.height * spec.width,), dtype=torch.float32,
+                      device=points.device)
+    img.scatter_reduce_(0, flat, valid.to(torch.float32), "amax", include_self=True)
+    return img.reshape(spec.height, spec.width)
 
 
 def dilate_with_kernel(img, kernel: np.ndarray):
@@ -236,6 +251,22 @@ def scan_mark_image(spec: CountMapSpec, offset, points, mask, pose_world):
                                         pose_world)
     return ray_mark_image(start.contiguous(), end.contiguous(),
                           beam_mask.contiguous(), spec.height, spec.width)
+
+
+def update_log_odds_map(spec: CountMapSpec, lmap: LogOddsMap, points, mask,
+                        pose_world, free_prob: float = 0.3,
+                        occu_prob: float = 0.9) -> LogOddsMap:
+    """Log-odds pub-map update for one scan (LogOddsCellFunctions,
+    grid_map_cell.h:205-235): pass-through cells add log-odds(free_prob),
+    endpoint cells add log-odds(occu_prob); per-scan idempotence comes from
+    the mark image (occupied wins over free on the same cell), which on the
+    card is the carve kernel's. Writes ``lmap.log_odds`` in place."""
+    mark = scan_mark_image(spec, lmap.offset, points, mask, pose_world)
+    lo_free = float(np.log(free_prob / (1.0 - free_prob)))
+    lo_occu = float(np.log(occu_prob / (1.0 - occu_prob)))
+    delta = torch.where(mark == 2, lo_occu, torch.where(mark == 1, lo_free, 0.0))
+    lmap.log_odds.add_(delta.to(torch.float32))
+    return lmap
 
 
 def update_count_map(spec: CountMapSpec, cmap: CountMap, points, mask,
