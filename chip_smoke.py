@@ -58,6 +58,14 @@ against the single solve) and ``log_odds`` (the log-odds map over leg 3's
 kept scans, the carve kernel against the plain path on the CPU). One card
 cannot show a multi-GPU number: these phases show the mechanics only.
 
+The last phase, ``bench_headline``, is ``python -m roborts_slam_tpu_torch
+bench`` (``bench/headline.py``): the two correlation kernels held against the
+plain version at the headline's three tier shapes (a 2048² map), one match on
+the card against the plain path on the CPU, then the benchmark with the first
+and the second kernel in turns (1, 2, 2, 1) beside the CPU baseline: scans/s,
+the time per match and its roofline against the card's published peaks, and
+under ``--profile`` the device's launches per match and idle share.
+
 Under each of the three configurations the first scans are also replayed on
 the card and through the plain versions on the CPU, and must agree. Each
 phase prints one JSON line; any failed phase raises and the process exits
@@ -85,9 +93,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from roborts_slam_tpu_torch.bench.roofline import bound, tier_cost
+from roborts_slam_tpu_torch.bench.timing import device_us, host_us, in_turns, time_ms
+
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
-F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
 POS_TOL, ANG_TOL = 2e-3, 2e-3  # trajectory agreement bar (m, rad)
 LOOP_SEED = 20            # seed of the simulated corridor-loop log
 LOOP_LAPS = 1.15          # laps of the 66.3 m centre line driven in leg 3
@@ -131,81 +140,6 @@ def emit(obj):
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
-
-
-def time_ms(fn, reps: int = 20, warm: int = 5, inner: int = 10) -> float:
-    """Time of one ``fn`` call on the card in ms: CUDA events around a run of
-    ``inner`` back-to-back calls, warm, median over ``reps`` runs."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / inner)
-    return statistics.median(out)
-
-
-def device_us(fn, launches: int = 100) -> float:
-    """Device time of one ``fn`` call in microseconds: ``launches`` calls
-    captured into one CUDA graph, the graph replayed between two events (no
-    host work between the launches), median of 7 replays."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(7):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / launches * 1e3)
-    return statistics.median(out)
-
-
-def host_us(fn, calls: int = 200) -> float:
-    """Host time of one ``fn`` call in microseconds: the host's clock round
-    ``calls`` back-to-back calls, warm, no synchronise inside the window."""
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    seconds = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return seconds / calls * 1e6
-
-
-def in_turns(measure, fns: dict, order) -> dict:
-    """``measure(fn)`` for every name of ``order`` in that order (a name may
-    come more than once); the mean per name. Two functions are compared
-    fairly only inside one run and in turns: a, b, b, a."""
-    seen = {name: [] for name in fns}
-    for name in order:
-        seen[name].append(measure(fns[name]))
-    return {name: statistics.mean(v) for name, v in seen.items()}
-
-
-def bound(bytes_moved: float, operations: float):
-    """Least time the card could take: the larger of bytes over the memory
-    rate and operations over the float32 rate. Returns (ms, which)."""
-    tb = bytes_moved / HBM_BYTES_PER_S * 1e3
-    to = operations / F32_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def corridor_loop_map(GroundTruthMap):
@@ -324,33 +258,7 @@ def profile_frontend(SlamEngine, config, laser, ranges, odom, times, world_size,
         engine.finish()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    dev_time = lambda e: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0))
-    # device rows only: an operator row repeats the time of the kernels it
-    # launched, so summing every row would count the device twice
-    kernels = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted(kernels, key=dev_time, reverse=True)
-    busy_s = sum(dev_time(e) for e in kernels) * 1e-6
-    # the same from the trace's device intervals: the time during which at
-    # least one kernel, copy or fill ran, an interval recorded twice (or two
-    # that overlap) counted once
-    spans = []
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            start = e.start_ns() if hasattr(e, "start_ns") else e.start_us() * 1000
-            spans.append((start, start + e.duration_ns() if hasattr(e, "duration_ns")
-                          else start + e.duration_us() * 1000, e.name()))
-    union_ns, end = 0, -1
-    for a, b, _ in sorted(spans):
-        if b > end:
-            union_ns += b - max(a, end)
-            end = b
-    union_s = union_ns * 1e-9
-    out = ROOT / out_dir
-    out.mkdir(parents=True, exist_ok=True)
-    (out / f"profile_{tag}.txt").write_text(avg.table(
-        sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=80))
+    dt = device_time(prof, out_dir, tag)
     # the profiler slows the host side several times over, so the share is
     # also given against the unprofiled per-scan wall time of the same scans
     engine2 = new_engine()
@@ -366,17 +274,89 @@ def profile_frontend(SlamEngine, config, laser, ranges, odom, times, world_size,
           "backend_seconds": engine2.diag.backend_time_s,
           "backend_batch_max": engine2.diag.backend_batch_max,
           "profiled_wall_seconds": wall,
-          "unprofiled_wall_seconds": plain_wall,
-          "device_busy_seconds": busy_s,
-          "device_launches": sum(e.count for e in kernels),
-          "device_busy_share_of_unprofiled_wall": busy_s / plain_wall,
-          "device_idle_share_of_unprofiled_wall": 1.0 - busy_s / plain_wall,
-          "device_intervals": len(spans), "device_intervals_distinct": len(set(spans)),
-          "device_union_busy_seconds": union_s,
-          "device_union_idle_share_of_unprofiled_wall": 1.0 - union_s / plain_wall,
-          "top_device_kernels": [
-              {"name": e.key[:70], "calls": e.count, "device_ms": dev_time(e) * 1e-3}
-              for e in rows[:12] if dev_time(e) > 0]})
+          "unprofiled_wall_seconds": plain_wall, **idle_shares(dt, plain_wall)})
+
+
+def device_time(prof, out_dir, tag):
+    """What a torch.profiler trace says of the device: the busy seconds
+    summed over kernel rows, the union of the device intervals, the
+    launches and the heaviest kernels. Writes the table to
+    ``out_dir/profile_<tag>.txt``."""
+    avg = prof.key_averages()
+    dev_time = lambda e: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+    # device rows only: an operator row repeats the time of the kernels it
+    # launched, so summing every row would count the device twice
+    kernels = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(kernels, key=dev_time, reverse=True)
+    # the same from the trace's device intervals: the time during which at
+    # least one kernel, copy or fill ran, an interval recorded twice (or two
+    # that overlap) counted once
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            start = e.start_ns() if hasattr(e, "start_ns") else e.start_us() * 1000
+            spans.append((start, start + e.duration_ns() if hasattr(e, "duration_ns")
+                          else start + e.duration_us() * 1000, e.name()))
+    union_ns, end = 0, -1
+    for a, b, _ in sorted(spans):
+        if b > end:
+            union_ns += b - max(a, end)
+            end = b
+    out = ROOT / out_dir
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"profile_{tag}.txt").write_text(avg.table(
+        sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=80))
+    return {"busy_s": sum(dev_time(e) for e in kernels) * 1e-6,
+            "launches": sum(e.count for e in kernels),
+            "intervals": len(spans), "intervals_distinct": len(set(spans)),
+            "union_s": union_ns * 1e-9,
+            "top": [{"name": e.key[:70], "calls": e.count, "device_ms": dev_time(e) * 1e-3}
+                    for e in rows[:12] if dev_time(e) > 0]}
+
+
+def idle_shares(dt, plain_wall):
+    """``device_time``'s figures against the unprofiled wall time of the
+    same work (the profiler slows the host several times over)."""
+    return {"device_busy_seconds": dt["busy_s"],
+            "device_launches": dt["launches"],
+            "device_busy_share_of_unprofiled_wall": dt["busy_s"] / plain_wall,
+            "device_idle_share_of_unprofiled_wall": 1.0 - dt["busy_s"] / plain_wall,
+            "device_intervals": dt["intervals"],
+            "device_intervals_distinct": dt["intervals_distinct"],
+            "device_union_busy_seconds": dt["union_s"],
+            "device_union_idle_share_of_unprofiled_wall": 1.0 - dt["union_s"] / plain_wall,
+            "top_device_kernels": dt["top"]}
+
+
+def profile_matches(f, n, out_dir, tag):
+    """Optional (``--profile [DIR]``): ``f(0, n)``, a chain of ``n`` headline
+    matches, traced with torch.profiler; the device's launches per match and
+    its idle share against the unprofiled wall of the same chain."""
+    from torch.profiler import ProfilerActivity, profile
+
+    f(0, n).cpu()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        f(0, n).cpu()
+    wall = time.perf_counter() - t0
+    dt = device_time(prof, out_dir, tag)
+    t0 = time.perf_counter()
+    f(0, n).cpu()
+    plain_wall = time.perf_counter() - t0
+    return {"matches": n, "profiled_wall_seconds": wall,
+            "unprofiled_wall_seconds": plain_wall,
+            "device_launches_per_match": dt["launches"] / n,
+            **idle_shares(dt, plain_wall)}
+
+
+def profile_dir():
+    """``--profile [DIR]``: the directory profiles go to (default ``out``);
+    ``None`` without ``--profile``."""
+    if "--profile" not in sys.argv[1:]:
+        return None
+    rest = sys.argv[sys.argv.index("--profile") + 1:]
+    return rest[0] if rest else "out"
 
 
 def parallel_rank(spec, operands, graphs, budget, device):
@@ -975,12 +955,8 @@ def main() -> int:
             flat = torch.where(ok, flat, 0).reshape(-1)
             pf = p_.reshape(-1)
             lib = lambda: torch.gather(pf, 0, flat).view(B, A, S, N, N).sum(2)
-            touched = int(torch.unique(flat[ok.reshape(-1)]).numel())
-            n_samples = int(sv[0].sum())
-            bytes_moved = (touched * 4 + 2 * B * A * S * 4 + B * S
-                           + 2 * B * N * 4 + B * 4 + B * A * N * N * 4)
-            operations = B * A * n_samples * (N * N + 4 * N)
-            bms, by = bound(bytes_moved, operations)
+            cost = tier_cost(tname, p_.shape, rx, ry, sv, xs, ys)
+            bms, by = bound(cost.hbm_bytes, cost.operations)
             # the two kernels and the yardstick in turns, inside this run
             calls = {k["name"]: (lambda k=k: k["fn"](*args)) for k in (K1, K2)}
             calls["library"] = lib
@@ -999,7 +975,7 @@ def main() -> int:
                 "library_ms": ms["library"],
                 "library_device_us": dev_us["library"],
                 "library_host_us": host["library"],
-                "cells_touched": touched,
+                "cells_touched": cost.cells,
             }
             compared_corr.add((B, A, S, N, H, W))
             for k in (K1, K2):
@@ -1479,8 +1455,8 @@ def main() -> int:
         for ver, B, *rest in sorted(shapes["corr"]):
             if (B, *rest) in compared_corr:
                 continue
-            bs = ctx["chain_spec"]
-            assert tuple(rest[3:]) == (bs.height, bs.width), \
+            bs = ctx["chain_spec"] if ctx else None
+            assert bs is not None and tuple(rest[3:]) == (bs.height, bs.width), \
                 f"{leg}: correlation shape {(ver, B, *rest)} not compared"
             chain_entries(ctx, B, leg)
             optional.update(f"{ctx['tag']}chain_b{B}:{t}" for t in ctx["tiers"])
@@ -1639,9 +1615,8 @@ def main() -> int:
           "frontend_ms_per_scan": engine.diag.match_time_s / len(order) * 1e3})
     del img, engine
 
-    if "--profile" in sys.argv[1:]:
-        rest = sys.argv[sys.argv.index("--profile") + 1:]
-        out_dir = rest[0] if rest else "out"
+    out_dir = profile_dir()
+    if out_dir is not None:
         profile_frontend(SlamEngine, config, laser, ranges, odom, times, 30.0,
                          out_dir, "simulation")
         with corr_kernel(2):
@@ -2231,6 +2206,81 @@ def main() -> int:
     tmp.cleanup()
     torch.cuda.empty_cache()
 
+    # ---- phase 13: the headline benchmark, ``python -m roborts_slam_tpu_torch
+    # bench`` (bench/headline.py): K1 and K2 held against the plain version at
+    # its three tier shapes, then the benchmark with each, in turns ----
+    from roborts_slam_tpu_torch.bench import headline as bench
+    from roborts_slam_tpu_torch.bench.workload import headline_workload
+    from roborts_slam_tpu_torch.frontend.matchers import scan_match
+
+    t1 = time.perf_counter()
+    BENCH = "bench_headline"
+    hw = headline_workload(device=dev)
+    hm = hw["matcher"]
+    corr_entries(hw["fine_spec"], {"coarse": hm.coarse, "fine": hm.fine,
+                                   "super_fine": hm.super_fine},
+                 hw["fine_probs"], hw["offset"], hw["init_pose"], hw["points"],
+                 hw["n_valid"], "bench_b1", K1, BENCH)
+    for e in both_kernels:          # the second kernel's rows, listed too
+        if e["name"].startswith(K2["name"] + "[bench_b1:"):
+            key = e["name"][len(K2["name"]) + 1:-1] + "@k2"
+            entries[key] = {k: v for k, v in e.items() if k != "max_abs_k2_minus_k1"}
+            counted_as[key] = ("corr", 2, *e["shape"])
+    # one match on the card against the plain path on the CPU
+    hw_cpu = headline_workload(device="cpu")
+    match_args = lambda w: (w["matcher"], w["fine_spec"], w["fine_probs"], w["offset"],
+                            w["coarse_spec"], w["coarse_probs"], w["coff"], w["points"],
+                            w["mask"], w["n_valid"], w["init_pose"])
+    got, want = scan_match(*match_args(hw)), scan_match(*match_args(hw_cpu))
+    match_diff = {"pose": float((got.pose.cpu() - want.pose).abs().max()),
+                  "score": float((got.score.cpu() - want.score).abs())}
+    assert match_diff["pose"] <= POS_TOL and match_diff["score"] <= 1e-5, match_diff
+    del hw_cpu
+    baseline = bench.cpu_baseline_scans_per_sec()
+    reset_counts()
+    records = []
+    for version in (1, 2, 2, 1):
+        with corr_kernel(version):
+            records.append(bench.headline(device=dev, baseline=baseline))
+    counts, shapes = read_counts(), read_shapes()
+    k1, k2 = bench.K_POINTS
+    matches = 2 * (k1 + (1 + bench.REPS) * (k1 + k2))    # per kernel: two runs
+    for r in records:
+        assert r["device"] == torch.cuda.get_device_name(0) and r["value"] > 0, r
+        assert all(np.isfinite(r[k]) for k in ("value", "match_us", "vs_baseline",
+                                                "hbm_frac_of_peak", "gops_per_s")), r
+    by_kernel = {v: [r for r in records if r["corr_kernel"] == v] for v in (1, 2)}
+    report_b = {
+        "timed": "K slope at K = %s, best of %d reps per K point, each run's "
+                 "workload made anew; the kernels in turns (1, 2, 2, 1)"
+                 % (list(bench.K_POINTS), bench.REPS),
+        "map": [hw["fine_spec"].height, hw["fine_spec"].width],
+        "tiers": {t: [p.n_angles, p.max_samples, p.n_space] for t, p in
+                  (("coarse", hm.coarse), ("fine", hm.fine), ("super_fine", hm.super_fine))},
+        "kernel_rows": [{k: v for k, v in e.items() if k != "box"} for e in both_kernels
+                        if "[bench_b1:" in e["name"]],
+        "card_vs_cpu_plain_one_match": match_diff,
+        "baseline_scans_per_sec": baseline,
+        "runs": records,
+        "mean": {f"k{v}": {k: statistics.mean(r[k] for r in rs)
+                           for k in ("value", "match_us", "vs_baseline", "achieved_gbps",
+                                     "hbm_frac_of_peak", "gops_per_s")}
+                 for v, rs in by_kernel.items()},
+        "bound_us": records[0]["bound_us"], "bound_by": records[0]["bound_by"],
+        "kernel_launches_per_match": {name: n / matches for name, n in counts.items()},
+        "launches": counts, "launches_by_shape": shapes_said(shapes)}
+    assert report_b["kernel_launches_per_match"]["correlation_scores"] == 3.0
+    assert report_b["kernel_launches_per_match"]["correlation_scores_v2"] == 3.0
+    account(BENCH, shapes, None)
+    if out_dir is not None:
+        for version in (1, 2):
+            with corr_kernel(version):
+                report_b[f"profile_k{version}"] = profile_matches(
+                    bench.match_chain(hw), 20, out_dir, f"bench_headline_k{version}")
+    emit({"phase": BENCH, **report_b, "seconds": time.perf_counter() - t1})
+    del hw
+    torch.cuda.empty_cache()
+
     # every kernel of every main path was launched on it, at a compared shape
     listed = [e for e in entries.values() if e["launches"] > 0]
     on_leg = {LEG1: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
@@ -2239,7 +2289,8 @@ def main() -> int:
               LEG4: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
               LEG5: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
               "parallel_chain_match": ("correlation_scores[", "bad_ray_count["),
-              "log_odds": ("ray_mark_image[",)}
+              "log_odds": ("ray_mark_image[",),
+              BENCH: ("correlation_scores[", "correlation_scores_v2[")}
     for leg, names in on_leg.items():
         for name in names:
             assert any(e["launches_from"] == leg and e["name"].startswith(name)

@@ -3,14 +3,17 @@
 Subcommands:
   run       offline SLAM over a scan log (.npz, .rslg or .bag)
   simulate  generate a scan log (.npz or .rslg) from a ground-truth map
-  bench     not ported yet
+  bench     headline throughput: the 3-tier correlative match at 2048²
 
 ``run`` works on the card unless ``--device cpu`` is given (the plain
 PyTorch versions of the kernels then run on the CPU). ``.rslg`` logs are
 read through the native decode worker (``io/native_log.py``, built with
 ``g++`` at first use), ``.bag`` files through ``io/rosbag.py``. ``--async``
-runs the back end on its worker thread. ``bench`` raises
-``NotImplementedError`` naming where ROADMAP.md queues it.
+runs the back end on its worker thread. ``bench`` prints one JSON line:
+scans/s of the sequential 3-tier match (``bench/headline.py``), the CPU
+baseline's scans/s and the ratio, and the roofline against the published
+peaks of the device; like ``run`` it wants the card unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -96,9 +99,19 @@ def _cmd_simulate(args) -> int:
 
 
 def _cmd_bench(args) -> int:
-    raise NotImplementedError(
-        "bench is not ported yet (ROADMAP.md: the benchmark comes with the PR "
-        "that writes BENCHMARK.json)")
+    import json
+    import time
+
+    from .bench import headline
+
+    t0 = time.monotonic()
+
+    def log(msg):
+        print(f"[bench {time.monotonic() - t0:6.1f}s] {msg}", file=sys.stderr,
+              flush=True)
+
+    print(json.dumps(headline.headline(device=args.device, log=log)), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -135,6 +148,9 @@ def main(argv=None) -> int:
     s.set_defaults(fn=_cmd_simulate)
 
     b = sub.add_parser("bench", help="headline throughput benchmark")
+    b.add_argument("--device", default=None,
+                   help="torch device; default: the CUDA card (required "
+                        "unless 'cpu' is given)")
     b.set_defaults(fn=_cmd_bench)
 
     args = ap.parse_args(argv)

@@ -23,7 +23,6 @@ versions, and what the pieces of one wrapper call cost on the host. About
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -34,6 +33,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from roborts_slam_tpu_torch.bench import timing            # noqa: E402
+from roborts_slam_tpu_torch.bench.timing import device_us, time_ms  # noqa: E402
 from roborts_slam_tpu_torch.ops import raster, raycast          # noqa: E402
 from roborts_slam_tpu_torch.ops.cuda import build, launch, raycarve  # noqa: E402
 
@@ -71,61 +72,15 @@ def room_scan(dev, seed, side, pose, beams=1081, packed=1152, reach=200.0,
             torch.as_tensor(mask, device=dev))
 
 
-def device_us(fn, launches=100):
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(7):
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        graph.replay()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / launches * 1e3)
-    return statistics.median(out)
-
-
-def host_us(fn, calls=300):
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    seconds = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return seconds / calls * 1e6
-
-
-def time_ms(fn, reps=20, inner=10):
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / inner)
-    return statistics.median(out)
+def host_us(fn):
+    """``bench/timing.host_us`` over 300 calls."""
+    return timing.host_us(fn, calls=300)
 
 
 def in_turns(fns: dict) -> dict:
     """``device_us`` of every function, forwards then backwards; the mean."""
     names = list(fns)
-    seen = {name: [] for name in names}
-    for name in names + names[::-1]:
-        seen[name].append(device_us(fns[name]))
-    return {name: statistics.mean(v) for name, v in seen.items()}
+    return timing.in_turns(device_us, fns, names + names[::-1])
 
 
 def main() -> int:

@@ -5,6 +5,7 @@ log; what is not ported raises; nothing of the port imports JAX."""
 
 import ast
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -148,20 +149,35 @@ def npz_run(log_path, tmp_path_factory):
 @pytest.mark.parametrize("argv", [
     ["run", "x.bag"], ["run", "x.rslg"], ["run", "LOG", "--async"],
     ["run", "LOG", "--out-map", "m"], ["run", "LOG", "--render", "r.png"],
-    ["run", "LOG", "--checkpoint", "c.npz"], ["bench"],
+    ["run", "LOG", "--checkpoint", "c.npz"], ["bench", "--device", "cpu"],
     ["simulate", "icra", "out.rslg"],
 ])
-def test_unported_options_raise(log_path, npz_run, tmp_path, capsys, argv):
+def test_unported_options_raise(log_path, npz_run, tmp_path, capsys, monkeypatch, argv):
     """The options that raised while their modules were not ported now run
     on the small log on the CPU: ``.bag`` and ``.rslg`` input (the same log
     written by ``write_bag`` / ``write_rslg``), ``--async``, ``--out-map``,
     ``--render`` (skipped without matplotlib) and ``--checkpoint``. Each
     keeps the plain run's kept stamps and its trajectory within the engine
-    bar (2e-3 m / 2e-3 rad). ``bench`` still raises, naming its ROADMAP item;
-    ``simulate`` to ``.rslg`` needs the scene maps and raises without them."""
+    bar (2e-3 m / 2e-3 rad). ``bench --device cpu`` runs the headline at
+    K = (1, 2), one rep, and prints one JSON line with the JAX bench's keys;
+    without ``--device cpu`` it wants the card. ``simulate`` to ``.rslg``
+    needs the scene maps and raises without them."""
     if argv[0] == "bench":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md: the benchmark"):
-            main(argv)
+        from roborts_slam_tpu_torch.bench import headline
+
+        monkeypatch.setattr(headline, "K_POINTS", (1, 2))
+        monkeypatch.setattr(headline, "REPS", 1)
+        assert main(argv) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert len(lines) == 1
+        rec = json.loads(lines[0])
+        assert {"metric", "value", "unit", "vs_baseline", "rep_times_s", "rep_spread",
+                "match_us", "hbm_frac_of_peak", "achieved_gbps", "gops_per_s"} <= set(rec)
+        assert rec["metric"] == "correlative_scan_match_throughput"
+        assert rec["device"] == "cpu" and rec["k_points"] == [1, 2] and rec["value"] > 0
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main(argv[:1])
         return
     if argv[0] == "simulate":
         if os.path.exists(tscenes.SCENES["icra"].map_yaml):
