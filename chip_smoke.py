@@ -47,6 +47,18 @@ loaded into a new engine, the other half fed), its pipelined variant against
 the pipelined run, and ``bag_vs_npz`` (the first 120 scans as a bz2-chunked
 ``.bag`` and as ``.npz`` through ``run``).
 
+After leg 4, ``jax_full_width`` holds legs 1, 3 and 4 against the JAX
+package's own results on the same inputs at full width
+(``tests/data/jax_full_width.npz``, written on the CPU by
+``scripts/torch_full_width_parity.py --write``; the logs are made again here
+and only their SHA-256 is stored). Per leg it prints the kept counts and the
+kept decisions that differ, the first parting scan, the link, closure and
+solve counts, the trajectory gap on the scans both kept (max, median, count
+over 2e-3 m), both ATEs against the simulated truth and the published-map
+cells that differ. It fails the run if a log's hash differs, a closure count
+differs, a kept count is more than 2 % from JAX's, or the port's ATE exceeds
+max(1.25 x JAX's, JAX's + 5 mm).
+
 Three phases run ``parallel/`` on leg 3's state: ``parallel_chain_match``
 (eight of its chains against its newest scan through the sharded gather
 matcher on a one-rank NCCL group and over two gloo ranks sharing the card,
@@ -93,13 +105,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from roborts_slam_tpu_torch.bench import parity
+from roborts_slam_tpu_torch.bench.parity import (
+    LOOP_LAPS, LOOP_SEED, corridor_loop_log, corridor_loop_path,
+)
 from roborts_slam_tpu_torch.bench.roofline import bound, tier_cost
 from roborts_slam_tpu_torch.bench.timing import device_us, host_us, in_turns, time_ms
 
 ROOT = Path(__file__).resolve().parent
 POS_TOL, ANG_TOL = 2e-3, 2e-3  # trajectory agreement bar (m, rad)
-LOOP_SEED = 20            # seed of the simulated corridor-loop log
-LOOP_LAPS = 1.15          # laps of the 66.3 m centre line driven in leg 3
 ATE_BAR_M = 0.3           # leg 3's bar on the ATE against the simulated truth
 STREAM_DT = 0.01          # leg 5 samples the pose stream at 100 Hz of log time
 SNAPSHOT_EVERY = 50       # leg 5's map snapshot hook: every 50 kept scans
@@ -140,69 +154,6 @@ def emit(obj):
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
-
-
-def corridor_loop_map(GroundTruthMap):
-    """Ground truth of the corridor loop, built in memory at 0.05 m cells: a
-    closed corridor 3 m wide round a solid 18 m x 10 m block inside a
-    24 m x 16 m hall. Texture every 2 m on both sides of every corridor:
-    door recesses (0.8 m wide, 0.5 m deep) in the outer wall, buttresses
-    (0.5 m wide, 0.3 m deep) on the block."""
-    res = 0.05
-    x0, y0 = -1.0, -1.0                           # world corner of cell (0, 0)
-    occ = np.ones((int(18 / res), int(26 / res)), bool)
-
-    def box(xa, xb, ya, yb, value):
-        occ[int(round((ya - y0) / res)):int(round((yb - y0) / res)),
-            int(round((xa - x0) / res)):int(round((xb - x0) / res))] = value
-
-    box(0, 24, 0, 16, False)                      # the hall
-    box(3, 21, 3, 13, True)                       # the block
-    for x in np.arange(1.0, 23.0, 2.0):
-        box(x, x + 0.8, -0.5, 0, False)
-        box(x + 1, x + 1.8, 16, 16.5, False)
-    for y in np.arange(1.0, 15.0, 2.0):
-        box(-0.5, 0, y, y + 0.8, False)
-        box(24, 24.5, y + 1, y + 1.8, False)
-    for x in np.arange(4.0, 20.0, 2.0):
-        box(x, x + 0.5, 2.7, 3, True)
-        box(x + 1, x + 1.5, 13, 13.3, True)
-    for y in np.arange(4.0, 12.0, 2.0):
-        box(2.7, 3, y, y + 0.5, True)
-        box(21, 21.3, y + 1, y + 1.5, True)
-    return GroundTruthMap(occupancy=occ, free=~occ, resolution=res,
-                          origin=np.array([x0, y0]))
-
-
-def corridor_loop_path(laps: float) -> np.ndarray:
-    """Centre line of the corridor (a 21 m x 13 m rectangle with corners
-    rounded at 1 m radius, 66.3 m round), anticlockwise from the middle of
-    the bottom corridor, as a polyline of 2 cm steps over ``laps`` laps."""
-    r, ds = 1.0, 0.02
-    xa, xb, ya, yb = 1.5, 22.5, 1.5, 14.5
-    pts = []
-
-    def line(p, q):
-        n = max(int(np.hypot(q[0] - p[0], q[1] - p[1]) / ds), 1)
-        pts.extend(np.linspace(p, q, n, endpoint=False))
-
-    def arc(c, a0):
-        n = int(r * np.pi / 2 / ds)
-        a = a0 + np.linspace(0, np.pi / 2, n, endpoint=False)
-        pts.extend(np.stack([c[0] + r * np.cos(a), c[1] + r * np.sin(a)], -1))
-
-    line((12.0, ya), (xb - r, ya))
-    arc((xb - r, ya + r), -np.pi / 2)
-    line((xb, ya + r), (xb, yb - r))
-    arc((xb - r, yb - r), 0.0)
-    line((xb - r, yb), (xa + r, yb))
-    arc((xa + r, yb - r), np.pi / 2)
-    line((xa, yb - r), (xa, ya + r))
-    arc((xa + r, ya + r), np.pi)
-    line((xa + r, ya), (12.0, ya))
-    lap = np.asarray(pts)
-    whole, part = int(laps), laps - int(laps)
-    return np.concatenate([lap] * whole + [lap[:int(len(lap) * part) + 1]])
 
 
 @contextlib.contextmanager
@@ -752,9 +703,8 @@ def main() -> int:
     from roborts_slam_tpu_torch.backend.processor import BackendSpec
     from roborts_slam_tpu_torch.config import SlamConfig
     from roborts_slam_tpu_torch.frontend import matchers
-    from roborts_slam_tpu_torch.io.pgm import GroundTruthMap
     from roborts_slam_tpu_torch.io.scan_log import ScanLog
-    from roborts_slam_tpu_torch.io.simulate import path_to_trajectory, simulate_log
+    from roborts_slam_tpu_torch.io.simulate import path_to_trajectory
     from roborts_slam_tpu_torch.utils.evaluation import ate_rmse, match_by_time
     from roborts_slam_tpu_torch.frontend.processor import (
         FrontendSpec, init_frontend_state,
@@ -790,17 +740,12 @@ def main() -> int:
     log = np.load(ROOT / "tests" / "data" / "golden_willow.npz")
     laser = LaserModel.from_array(log["laser"])
     ranges, odom, times = log["ranges"], log["odom"], log["times"]
-    n_scans = len(times)
 
     t0 = time.perf_counter()
-    loop_laser = LaserModel(angle_min=-np.deg2rad(135.0), angle_max=np.deg2rad(135.0),
-                            range_min=0.05, range_max=10.0, num_beams=1081,
-                            scan_time=0.025)
     loop_traj = path_to_trajectory(corridor_loop_path(LOOP_LAPS), speed=1.0,
                                    scan_rate=10.0)
-    loop_log = simulate_log(corridor_loop_map(GroundTruthMap), loop_laser,
-                            trajectory=loop_traj, odom_error=(0.03, 0.03, 0.05),
-                            range_noise=0.01, seed=LOOP_SEED)
+    loop_log = corridor_loop_log()
+    loop_laser = loop_log.laser
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     log_path = os.path.join(tmp.name, "corridor_loop.npz")
     loop_log.save(log_path)
@@ -1511,9 +1456,7 @@ def main() -> int:
     # ---- phase 4: the main path at full width ----
     # 70 scans out, then the same 70 in reverse order with times continuing
     # upward: an out-and-back run over identical poses
-    order = list(range(n_scans)) + list(range(n_scans - 1, -1, -1))
-    dt = float(times[1] - times[0])
-    feed_times = [float(times[0]) + dt * k for k in range(len(order))]
+    order, feed_times = parity.willow_out_and_back(log)
 
     def drive(cfg):
         """One out-and-back run through the public entry points; returns the
@@ -1574,6 +1517,10 @@ def main() -> int:
     engine, report, shapes1 = drive(config)
     emit({"phase": LEG1, **report, "spa_host_syncs": spa.host_syncs})
     account(LEG1, shapes1, ctx_sim)
+    # what legs 1, 3 and 4 were fed and what they left, for jax_full_width
+    fed1 = dict(laser=laser, ranges=ranges[order], odom=odom[order],
+                times=np.asarray(feed_times), gt=None)
+    jax_legs = {"leg1": (parity.leg_record(engine, fed1), parity.inputs_sha256(fed1))}
     kept = len(engine.store)
     # leg 2: the same run with the link radius cut to 1 m, so that the back
     # end proposes near chains and loop candidates by itself: chain matches
@@ -1785,6 +1732,9 @@ def main() -> int:
     pub3 = eng3.get_pub_map()
     assert (pub3 == 100).any() and (pub3 == 0).any()
     account(LEG3, shapes3, ctx_rr)
+    fed3 = parity.leg_inputs("leg3", loop_log)
+    jax_legs["leg3"] = (parity.leg_record(eng3, fed3, parity.port_ate),
+                        parity.inputs_sha256(fed3))
     traj3 = eng3.trajectory_array()
     graph3 = sorted((e.source, e.target) for e in eng3.backend.graph.edges)
 
@@ -1980,7 +1930,23 @@ def main() -> int:
         == report4["scans_fed"]
     assert report4["launches"]["correlation_scores"] > 0
     account(LEG4, shapes4, ctx_df)
+    fed4 = parity.leg_inputs("leg4", loop_log)
+    jax_legs["leg4"] = (parity.leg_record(eng4, fed4, parity.port_ate),
+                        parity.inputs_sha256(fed4))
     del eng4
+
+    # ---- phase 9a: legs 1, 3 and 4 against the JAX package's own results
+    # on the same inputs at full width (tests/data/jax_full_width.npz, written
+    # on the CPU by scripts/torch_full_width_parity.py --write) ----
+    fixture = parity.load_fixture()
+    legs_said, failed = {}, {}
+    for leg, (rec, sha) in jax_legs.items():
+        legs_said[leg], bars = parity.compare_leg(rec, fixture[leg], sha)
+        if bars:
+            failed[leg] = bars
+    emit({"phase": "jax_full_width", "fixture": str(parity.FIXTURE.relative_to(ROOT)),
+          "legs": legs_said, "failed": failed})
+    assert not failed, failed
     same_path("kernel_vs_plain_path_default_config",
               replay(df_config, loop_laser, corridor_log, 40.0, None, 20),
               replay(df_config, loop_laser, corridor_log, 40.0, "cpu", 20),

@@ -27,7 +27,6 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -41,20 +40,14 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
     from roborts_slam_tpu_torch import SlamEngine, load_config
-    from roborts_slam_tpu_torch.io.pgm import GroundTruthMap
-    from roborts_slam_tpu_torch.io.simulate import path_to_trajectory, simulate_log
-    from roborts_slam_tpu_torch.models.scan import LaserModel
+    from roborts_slam_tpu_torch.bench.parity import corridor_loop_log
     from roborts_slam_tpu_torch.ops.cuda import build
 
     os.environ["ROBORTS_CORR_KERNEL"] = "2"
     build.build_all()
-    laser = LaserModel(angle_min=-np.deg2rad(135.0), angle_max=np.deg2rad(135.0),
-                       range_min=0.05, range_max=10.0, num_beams=1081, scan_time=0.025)
-    traj = path_to_trajectory(cs.corridor_loop_path(cs.LOOP_LAPS), speed=1.0, scan_rate=10.0)
-    log = simulate_log(cs.corridor_loop_map(GroundTruthMap), laser, trajectory=traj,
-                       odom_error=(0.03, 0.03, 0.05), range_noise=0.01, seed=cs.LOOP_SEED)
+    log = corridor_loop_log()
+    laser = log.laser
     n = args.scans or len(log)
     config = load_config(str(ROOT / "configs" / "real_robot.yaml"))
     modes = {"fused": (True, False), "unfused": (False, False), "pipelined": (True, True)}
