@@ -19,6 +19,7 @@ import roborts_slam_tpu_torch as T
 from roborts_slam_tpu.io.checkpoint import load_checkpoint as jload
 from roborts_slam_tpu.io.checkpoint import save_checkpoint as jsave
 from roborts_slam_tpu.models.scan import LaserModel as JLaser
+from roborts_slam_tpu_torch.bench import parity
 from roborts_slam_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from roborts_slam_tpu_torch.io.pgm import GroundTruthMap
 from roborts_slam_tpu_torch.io.simulate import simulate_log
@@ -37,6 +38,39 @@ POS_TOL = ANG_TOL = 2e-3      # the engine bar of test_torch_engine.py
 HOST_KEYS = {"host_pub_offset", "host_coarse_offset", "host_fine_offset"}
 
 
+# free runs over other stretches of the 120-scan log: start offsets of the
+# out-and-back (the first is ORDER's); the tests take FREE_VARIANTS
+VARIANTS = (0, 10, 20, 30, 40, 50, 60, 70)
+FREE_VARIANTS = VARIANTS[:3]
+
+
+def _order(start: int) -> list:
+    return [start + i for i in ORDER]
+
+
+def free_run(start: int, pipelined: bool = False) -> tuple:
+    """The JAX checkpoint tests' run over the out-and-back from ``start``:
+    JAX's engine to ``CUT``, its checkpoint loaded into the port (pipelined
+    when asked), both on to the end. (JAX's record, the port's)."""
+    import tempfile
+
+    d = np.load(os.path.join(REPO, "tests", "data", "golden_icra.npz"))
+    order = _order(start)
+    je = _jax(d)
+    _feed(je, d, range(CUT), order)
+    je._dev_time_origin = None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "jax.npz")
+        jsave(je, path)
+        te = load_checkpoint(path, device="cpu")
+    te.pipelined_fetch = pipelined
+    _feed(je, d, range(CUT, len(ORDER)), order)
+    _feed(te, d, range(CUT, len(ORDER)), order)
+    je.finish()
+    te.finish()
+    return parity.run_record(je, TIMES), parity.run_record(te, TIMES)
+
+
 @pytest.fixture(scope="module")
 def icra():
     return np.load(os.path.join(REPO, "tests", "data", "golden_icra.npz"))
@@ -52,9 +86,9 @@ def _jax(icra):
                         synchronous_backend=True, fused_backend=False)
 
 
-def _feed(eng, icra, ks):
+def _feed(eng, icra, ks, order=ORDER):
     for k in ks:
-        i = ORDER[k]
+        i = order[k]
         eng.process(icra["ranges"][i], icra["odom"][i], TIMES[k])
 
 

@@ -20,6 +20,7 @@ import roborts_slam_tpu_torch as T
 import roborts_slam_tpu_torch.io.scenes as tscenes
 from roborts_slam_tpu.io.scan_log import ScanLog as JScanLog
 from roborts_slam_tpu_torch.__main__ import main
+from roborts_slam_tpu_torch.bench import parity
 from roborts_slam_tpu_torch.io.pgm import GroundTruthMap
 from roborts_slam_tpu_torch.io.scan_log import ScanLog
 from roborts_slam_tpu_torch.io.simulate import simulate_log
@@ -35,11 +36,17 @@ REAL_YAML = os.path.join(REPO, "configs", "real_robot.yaml")
 N_SCANS = 14
 
 
-@pytest.fixture(scope="module")
-def log_path(tmp_path_factory):
+SEED = 3                       # the log's odometry- and range-noise seed
+# free runs over logs simulated from other seeds (the first is SEED's);
+# the tests take FREE_VARIANTS
+VARIANTS = (SEED, 11, 12, 13, 14, 15, 16, 17)
+FREE_VARIANTS = VARIANTS[:3]
+
+
+def room_log(seed: int = SEED) -> ScanLog:
     """The first scans of a simulated loop round a block in an 8 m x 6 m
     room (5 m lidar, 540 beams, 25 ms sweeps: dense enough for the
-    unblurred 0.025 m fine map of the real-robot profile), saved as ``.npz``."""
+    unblurred 0.025 m fine map of the real-robot profile)."""
     res = 0.05
     H, W = int(6 / res), int(8 / res)
     occ = np.zeros((H, W), bool)
@@ -53,12 +60,76 @@ def log_path(tmp_path_factory):
     laser = LaserModel(angle_min=-2.2, angle_max=2.2, range_min=0.1,
                        range_max=5.0, num_beams=540, scan_time=0.025)
     log = simulate_log(gt, laser, speed=0.6, scan_rate=5.0, n_waypoints=4,
-                       seed=3, range_noise=0.005)
-    cut = ScanLog(log.ranges[:N_SCANS], log.odom[:N_SCANS], log.times[:N_SCANS],
-                  laser, log.gt_poses[:N_SCANS])
+                       seed=seed, range_noise=0.005)
+    return ScanLog(log.ranges[:N_SCANS], log.odom[:N_SCANS], log.times[:N_SCANS],
+                   laser, log.gt_poses[:N_SCANS])
+
+
+@pytest.fixture(scope="module")
+def log_path(tmp_path_factory):
+    """``room_log()`` saved as ``.npz``."""
     path = str(tmp_path_factory.mktemp("cli") / "room.npz")
-    cut.save(path)
+    room_log().save(path)
     return path
+
+
+def real_robot_yaml(path: str) -> str:
+    """``configs/real_robot.yaml`` narrowed to the room (640 points, a 6 m
+    match-map window), written to ``path``."""
+    with open(REAL_YAML) as f:
+        raw = yaml.safe_load(f)
+    raw.update(max_points=640, match_map_window=6.0)
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+class _Recorded:
+    """Keeps the engines ``run`` makes (``.made``) while in use."""
+
+    def __enter__(self):
+        import roborts_slam_tpu_torch.engine as tengine
+
+        self.made, self._mod, self._cls = [], tengine, tengine.SlamEngine
+        made = self.made
+
+        class Recorded(self._cls):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+        tengine.SlamEngine = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.SlamEngine = self._cls
+
+
+def free_run(seed: int, profile: str, tmp: str) -> tuple:
+    """``run`` on the room log simulated from ``seed`` under ``profile``
+    ("default": no ``--config``; "real_robot": the narrowed YAML), and the
+    JAX engine on the same log. (JAX's record, the port's, what ``run``
+    printed, the trajectory file it wrote)."""
+    import contextlib
+    import io
+
+    path = os.path.join(tmp, f"room{seed}.npz")
+    room_log(seed).save(path)
+    out = os.path.join(tmp, f"traj{seed}_{profile}.txt")
+    if profile == "default":
+        argv, cfg = ["--max-points", "640"], J.SlamConfig(max_points=640)
+    else:
+        cfg_path = real_robot_yaml(os.path.join(tmp, "real_small.yaml"))
+        argv, cfg = ["--config", cfg_path], J.load_config(cfg_path)
+    said = io.StringIO()
+    with _Recorded() as rec, contextlib.redirect_stdout(said):
+        assert main(["run", path, "--device", "cpu", "--world-size", "14",
+                     *argv, "--out-trajectory", out]) == 0
+    eng, _ = _jax_run(cfg, path, 14.0)
+    log = ScanLog.load(path)
+    return (parity.run_record(eng, log.times, log.gt_poses),
+            parity.run_record(rec.made[-1], log.times, log.gt_poses),
+            said.getvalue(), np.loadtxt(out))
 
 
 def _traj_diff(a, b):

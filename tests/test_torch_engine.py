@@ -16,6 +16,7 @@ import torch
 import roborts_slam_tpu as J
 import roborts_slam_tpu_torch as T
 from roborts_slam_tpu.models.scan import LaserModel as JLaser
+from roborts_slam_tpu_torch.bench import parity
 from roborts_slam_tpu_torch.convert import store_from_jax
 from roborts_slam_tpu_torch.engine import ScanStore
 from roborts_slam_tpu_torch.models.scan import LaserModel as TLaser
@@ -30,6 +31,43 @@ OVER = dict(fine_map_resolution=0.02, world_size=24.0)
 N_SCANS = 40
 POS_TOL = ANG_TOL = 2e-3       # the bar the golden-trajectory tests set
 SUPER_FINE_STEP = 0.01         # m, one super-fine candidate step
+
+
+# free runs over other stretches of the 120-scan log: start offsets (the
+# first is the fixtures' own stretch); the tests take FREE_VARIANTS
+VARIANTS = (0, 10, 20, 30, 40, 50, 60, 70)
+FREE_VARIANTS = VARIANTS[:3]
+
+
+def _icra():
+    return np.load(os.path.join(REPO, "tests", "data", "golden_icra.npz"))
+
+
+def _pair(d, over=OVER):
+    """Both engines as the fixtures build them (blocking, unfused)."""
+    je = J.SlamEngine(J.load_config(SIM_YAML, **over), JLaser.from_array(d["laser"]),
+                      synchronous_backend=True, fused_backend=False)
+    te = T.SlamEngine(T.load_config(SIM_YAML, **over), TLaser.from_array(d["laser"]),
+                      device="cpu", fused_backend=False)
+    return je, te
+
+
+def free_run(start: int) -> dict:
+    """``engines``' run over the 40 scans from ``start``: both engines free,
+    then a forced graph optimisation. {phase: (JAX's record, the port's)}
+    with phase ``before_optimize`` / ``after_optimize``."""
+    d = _icra()
+    je, te = _pair(d)
+    fed = list(range(start, start + N_SCANS))
+    for i in fed:
+        for eng in (je, te):
+            eng.process(d["ranges"][i], d["odom"][i], float(d["times"][i]))
+    times = d["times"][fed]
+    out = {"before_optimize": (parity.run_record(je, times), parity.run_record(te, times))}
+    je.force_graph_optimize()
+    te.force_graph_optimize()
+    out["after_optimize"] = (parity.run_record(je, times), parity.run_record(te, times))
+    return out
 
 
 @pytest.fixture(scope="module")

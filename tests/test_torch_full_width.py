@@ -243,6 +243,38 @@ def test_one_step_from_a_carried_jax_state(one_step):
 
 # ---- leg 3 free, the small-size bar ----
 
+LEG3_FREE_SCANS = 36
+# free runs over corridor logs simulated from other seeds (the first is
+# leg 3's own); the tests take FREE_VARIANTS
+VARIANTS = (parity.LOOP_SEED, 21, 22, 23, 24, 25, 26, 27)
+FREE_VARIANTS = VARIANTS[:3]
+
+
+def leg3_inputs(seed: int, loop_log=None) -> dict:
+    """Leg 3's first ``LEG3_FREE_SCANS`` scans: of its own log for the loop
+    seed (``loop_log`` when already made), else of a 0.07-lap log (≈ 46
+    scans) simulated from ``seed`` with the same noise."""
+    if seed == parity.LOOP_SEED:
+        log = loop_log if loop_log is not None else parity.corridor_loop_log()
+    else:
+        log = parity.corridor_loop_log(laps=0.07, seed=seed)
+    n = LEG3_FREE_SCANS
+    return dict(laser=log.laser, ranges=log.ranges[:n], odom=log.odom[:n],
+                times=log.times[:n], gt=log.gt_poses[:n])
+
+
+def free_run(seed: int, loop_log=None) -> tuple:
+    """Both engines free over ``leg3_inputs(seed)`` under leg 3's
+    configuration. (JAX's record, the port's)."""
+    inputs = leg3_inputs(seed, loop_log)
+    je, te = P.jax_engine("leg3", inputs), P.port_engine("leg3", inputs)
+    for k in range(len(inputs["times"])):
+        P.feed(je, inputs, k)
+        P.feed(te, inputs, k)
+    return (parity.run_record(je, inputs["times"], inputs["gt"]),
+            parity.run_record(te, inputs["times"], inputs["gt"]))
+
+
 def test_leg3_first_36_scans_free(leg3_run):
     (kept, tj, tt), _ = leg3_run
     assert kept["t"] == kept["j"] and len(kept["t"]) >= 20

@@ -22,6 +22,7 @@ import roborts_slam_tpu as J
 import roborts_slam_tpu_torch as T
 from roborts_slam_tpu.backend.pose_graph import PoseGraph as JGraph
 from roborts_slam_tpu.models.scan import LaserModel as JLaser
+from roborts_slam_tpu_torch.bench import parity
 from roborts_slam_tpu_torch.backend.pose_graph import PoseGraph as TGraph
 from roborts_slam_tpu_torch.frontend.processor import FrontendSpec, frontend_step
 from roborts_slam_tpu_torch.models.grid_map import CountMap, ProbMap
@@ -39,6 +40,42 @@ TIMES = [0.1 * k for k in range(len(OUT_AND_BACK))]
 POS_TOL = ANG_TOL = 2e-3
 SUPER_FINE_STEP = 0.01
 OUT = 40                      # scans on the way out (no chain, no closure yet)
+
+
+# free runs over other stretches of the 120-scan log: start offsets of the
+# out-and-back (the first is OUT_AND_BACK's); the tests take FREE_VARIANTS
+VARIANTS = (0, 10, 20, 30, 40, 50, 60, 70)
+FREE_VARIANTS = VARIANTS[:3]
+UNCLOSED = dict(loop_match_min_response_fine=2.0)   # no loop verifies
+
+
+def free_run(start: int, mode: str) -> dict:
+    """A run of the port and of the JAX engine over the out-and-back from
+    ``start``, both fused (``mode`` "fused": the ``out_and_back`` fixture's
+    pair) or both pipelined with closures out of reach ("pipelined": the
+    ``unclosed`` fixture's). {"out" / "end": (JAX's record, the port's)},
+    at the end of the way out (the pipeline drained) and of the run."""
+    d = np.load(os.path.join(REPO, "tests", "data", "golden_icra.npz"))
+    order = [start + i for i in OUT_AND_BACK]
+    over = UNCLOSED if mode == "pipelined" else {}
+    cfg = dict(OVER, **over)
+    je = J.SlamEngine(J.load_config(SIM_YAML, **cfg), JLaser.from_array(d["laser"]),
+                      synchronous_backend=True)
+    te = T.SlamEngine(T.load_config(SIM_YAML, **cfg), TLaser.from_array(d["laser"]),
+                      device="cpu")
+    out = {}
+    for eng in (je, te):
+        eng.pipelined_fetch = mode == "pipelined"
+        eng.pipeline_depth = 3
+    for phase, ks in (("out", range(OUT)), ("end", range(OUT, len(OUT_AND_BACK)))):
+        for eng in (je, te):
+            _feed(eng, d, ks, order=order)
+            if phase == "out":
+                eng._drain_pipeline()
+            else:
+                eng.finish()
+        out[phase] = (parity.run_record(je, TIMES), parity.run_record(te, TIMES))
+    return out
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ import roborts_slam_tpu_torch.io.native_log as tnative
 import roborts_slam_tpu_torch.io.rosbag as tbag
 import roborts_slam_tpu_torch.io.scan_log as tlog
 import roborts_slam_tpu_torch.models.scan as tscan
+from roborts_slam_tpu_torch.bench import parity
 from roborts_slam_tpu_torch.ops.cuda import build
 from tests.test_rosbag import _write_bag
 
@@ -179,6 +180,37 @@ def test_rslg_cross_package(tmp_path, writer, reader, gt):
         d = PKG[reader]["native"].decode_scan(path, i, MP)
         np.testing.assert_array_equal(d[0][:nv], pts[:nv])
         assert d[2] == nv and d[3] == t
+
+
+# free runs over other stretches of the 120-scan icra log: start offsets
+# (the first is the test's own); the tests take FREE_VARIANTS
+VARIANTS = (0, 10, 20, 30, 40, 50, 60, 70)
+FREE_VARIANTS = VARIANTS[:3]
+STREAM_SCANS = 30
+
+
+def free_run(start: int, tmp: str) -> tuple:
+    """``test_run_stream_matches_jax``'s runs over the scans from ``start``:
+    the log as an RSLG file through each package's ``run_stream`` (JAX
+    blocking and unfused, the port asynchronous). (JAX's record, the port's,
+    the port's engine)."""
+    d = np.load(os.path.join(REPO, "tests", "data", "golden_icra.npz"))
+    ks = slice(start, start + STREAM_SCANS)
+    laser = tscan.LaserModel.from_array(d["laser"])
+    path = os.path.join(tmp, f"icra{start}.rslg")
+    tnative.write_rslg(tlog.ScanLog(d["ranges"][ks], d["odom"][ks], d["times"][ks], laser),
+                       path)
+    over = dict(fine_map_resolution=0.02, world_size=24.0)
+    with _closing(jnative.NativeScanStream(path, 270)) as js:
+        je = J.SlamEngine(J.load_config(SIM_YAML, **over), js.laser,
+                          synchronous_backend=True, fused_backend=False)
+        je.run_stream(js)
+    with tnative.NativeScanStream(path, 270) as ts:
+        te = T.SlamEngine(T.load_config(SIM_YAML, **over), ts.laser, device="cpu",
+                          synchronous_backend=False)
+        te.run_stream(ts)
+    times = d["times"][ks]
+    return parity.run_record(je, times), parity.run_record(te, times), te
 
 
 def test_run_stream_matches_jax(tmp_path):

@@ -47,6 +47,40 @@ def _same_magnitude(got, want):
     assert 0.1 <= ratio <= 10, ratio
 
 
+# replays from other scans of the 120-scan log: start offsets (the first is
+# the fixture's own)
+VARIANTS = (0, 10, 20, 30, 40, 50, 60, 70)
+
+
+def free_replay(start: int) -> np.ndarray:
+    """Both front ends free over ``N_STEPS`` scans from ``start`` (JAX's
+    jitted ``frontend_step`` and the port's, each from its own state, the
+    port's first from JAX's initial state). (N_STEPS, 2) pose gaps: m,
+    rad."""
+    d = np.load(os.path.join(REPO, "tests", "data", "golden_icra.npz"))
+    laser = LaserModel.from_array(d["laser"])
+    jspec = jfp.FrontendSpec.from_config(J.load_config(SIM_YAML, **OVER),
+                                         laser.range_max, 24.0)
+    tspec = tfp.FrontendSpec.from_config(T.load_config(SIM_YAML, **OVER),
+                                         laser.range_max, 24.0)
+    jstate = jfp.init_frontend_state(jspec)
+    tstate = state_from_jax({k: np.asarray(v) for k, v in _jax_state_arrays(jstate).items()},
+                            "cpu")
+    jstep = jax.jit(jfp.frontend_step, static_argnames=("spec",))
+    gaps = []
+    for i in range(start, start + N_STEPS):
+        pts, msk, nv = ranges_to_packed(d["ranges"][i], laser, OVER["max_points"])
+        odom = d["odom"][i].astype(np.float32)
+        jstate, jinfo = jstep(jspec, jstate, jnp.asarray(pts), jnp.asarray(msk),
+                              jnp.int32(nv), jnp.asarray(odom))
+        tstate, tinfo = tfp.frontend_step(tspec, tstate, torch.as_tensor(pts),
+                                          torch.as_tensor(msk), nv, torch.as_tensor(odom))
+        a, b = tinfo.pose.numpy().astype(np.float64), np.asarray(jinfo.pose, np.float64)
+        dth = a[2] - b[2]
+        gaps.append([np.abs(a[:2] - b[:2]).max(), abs(np.arctan2(np.sin(dth), np.cos(dth)))])
+    return np.asarray(gaps)
+
+
 @pytest.fixture(scope="module")
 def replay():
     """Both front ends stepped over the first scans of the icra log; the

@@ -17,6 +17,7 @@ import roborts_slam_tpu_torch.frontend.processor as tfp
 from roborts_slam_tpu.io.pgm import GroundTruthMap as JMap
 from roborts_slam_tpu.io.simulate import raycast as jraycast
 from roborts_slam_tpu.models.scan import LaserModel as JLaser, ranges_to_packed
+from roborts_slam_tpu_torch.bench import parity
 from roborts_slam_tpu_torch.convert import state_from_jax
 from roborts_slam_tpu_torch.models.scan import LaserModel as TLaser
 
@@ -88,6 +89,47 @@ def _traj_diff(a, b):
     d = np.abs(a - b)
     d[:, 3] = np.abs(np.arctan2(np.sin(d[:, 3]), np.cos(d[:, 3])))
     return d
+
+
+WALK_STEPS = 24
+# free runs over walks with odometry noise drawn from these seeds (0: the
+# walk's exact odometry); the tests take FREE_VARIANTS
+VARIANTS = (0, 1, 2, 3, 4, 5, 6, 7)
+FREE_VARIANTS = VARIANTS[:3]
+WALK_OVER = dict(SMALL, max_points=384, world_size=70.0, match_map_window=10.0,
+                 use_move_check=False)
+
+
+def walk_feed(seed: int = 0) -> list:
+    """The walk's scans (ranges, odometry, stamp): 0.5 m steps along +x,
+    ranges cast from the true pose; odometry the true pose, plus for a
+    seed other than 0 an error of N(0, 2 cm) in x and y and N(0, 10 mrad)
+    in the angle per step, drawn from the seed."""
+    gt = corridor()
+    rng = np.random.default_rng(seed)
+    feed = []
+    for step in range(WALK_STEPS):
+        pose = np.array([0.5 * step, 0.0, 0.0])
+        odom = pose.copy()
+        if seed:
+            odom += rng.normal(0.0, [0.02, 0.02, 0.01])
+        feed.append((jraycast(gt, pose, JLaser(**LASER)), odom, 0.1 * step))
+    return feed
+
+
+def free_run(seed: int) -> tuple:
+    """Both engines free over ``walk_feed(seed)``. (JAX's record, the
+    port's), the truth the walk's poses."""
+    je = J.SlamEngine(J.SlamConfig(**WALK_OVER), JLaser(**LASER),
+                      synchronous_backend=True, fused_backend=False)
+    te = T.SlamEngine(T.SlamConfig(**WALK_OVER), TLaser(**LASER), device="cpu")
+    feed = walk_feed(seed)
+    for args in feed:
+        je.process(*args)
+        te.process(*args)
+    times = [f[2] for f in feed]
+    gt = np.array([[0.5 * k, 0.0, 0.0] for k in range(WALK_STEPS)])
+    return parity.run_record(je, times, gt), parity.run_record(te, times, gt)
 
 
 @pytest.fixture(scope="module")
