@@ -368,3 +368,255 @@ def classify_tier(ref_scores, got_scores, tol: float = K_RESPONSE_FILTER_TOLERAN
             "flipped_max_dist_to_line": float(off_line.max()) if flipped.any() else None,
             **tie_margins(a, tol)}
 
+
+def edge_flips(spec, params, offset, points, n_valid: int, pose, grid_ref, grid_got) -> dict:
+    """Where a tier's two score grids differ on the same input: for each
+    candidate whose scores differ beyond 1e-5, the nearest approach of one
+    of its samples' cell coordinates ``r + x + 0.5`` (the port's) to a cell
+    edge, where ``floor`` switches cells. A sample that close to an edge
+    lands in either cell by the last bits of its rotation (the packages'
+    cos, sin and multiply-adds round differently). If every differing
+    candidate has a sample within 1e-3 cells of an edge, the grids differ
+    by rounding at cell edges: ``kind`` "cell_edge_flip". ``spec`` /
+    ``params`` / ``offset``: the port's map spec, tier parameters and map
+    offset; ``pose`` the tier's centre in world coordinates."""
+    import torch
+
+    from ..models.grid_map import world_to_map_pose
+    from ..ops.correlative import candidate_grid
+
+    c = world_to_map_pose(torch.as_tensor(offset), spec.inv_res, torch.as_tensor(pose))
+    g = candidate_grid(spec, params, torch.as_tensor(points), n_valid, c)
+    sv = g.svalid.numpy()[None, :, None]
+    dist = []
+    for r, v in ((g.rx, g.xs), (g.ry, g.ys)):
+        u = (r[:, :, None] + v[None, None, :] + 0.5).numpy().astype(np.float64)   # (A, S, N)
+        d = np.abs(u - np.round(u))
+        dist.append(np.where(sv, d, np.inf).min(1))                              # (A, N)
+    near = np.minimum(dist[0][:, :, None], dist[1][:, None, :])                  # (A, Nx, Ny)
+    differ = np.abs(np.asarray(grid_ref, np.float64) - np.asarray(grid_got)) > 1e-5
+    need = float(near[differ].max()) if differ.any() else 0.0
+    return {"candidates_differing": int(differ.sum()),
+            "edge_dist_of_their_closest_sample_max_cells": need,
+            **({"kind": "cell_edge_flip"} if need <= 1e-3 else {})}
+
+
+# ---- one step carried: the port's step from the reference's state ----
+
+STEP_POS_TOL = STEP_ANG_TOL = 1e-5   # m, rad: a step's pose (about 5 f32 steps here)
+STEP_SCORE_TOL = 1e-5                # a step's score
+STEP_COV_RTOL = 1e-3                 # the covariance's positional block, relative
+SOLVE_POSE_TOL = 1e-3                # m, rad: the store's poses after a solve (SPA tests)
+TIE_FLIP_CAP = 3                     # tie flips a run may have
+MAP_PLANES = ("pub_hits", "pub_passes", "coarse_probs", "fine_probs")
+
+
+def _np(a):
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+
+def counts(engine) -> dict:
+    """What says whether a step rebuilt maps: solves, recenters, the pub
+    map's shape."""
+    return {"solves": int(engine.backend.num_solves),
+            "recenters": int(getattr(engine.diag, "recenters", 0)),
+            "pub_shape": tuple(engine.state.pub.hits.shape)}
+
+
+def observe(engine, kept: bool, summary) -> dict:
+    """What one step of ``engine`` (either package's: the attribute names
+    are shared) leaves, as NumPy: whether the scan was kept, the step's
+    packed summary (None: the move gate dropped the scan before any step),
+    the graph's edges, the closure count, ``counts``, the store's poses and
+    the four map planes."""
+    st = engine.state
+    return {"kept": bool(kept),
+            "summary": None if summary is None else np.asarray(summary, np.float64),
+            "edges": [(int(e.source), int(e.target)) for e in engine.backend.graph.edges],
+            "closures": int(engine.backend.num_loop_closures), **counts(engine),
+            "poses": (np.asarray(engine.store.poses_array(), np.float64)
+                      if len(engine.store) else np.zeros((0, 3))),
+            "maps": {"pub_hits": _np(st.pub.hits).copy(), "pub_passes": _np(st.pub.passes).copy(),
+                     "coarse_probs": _np(st.coarse.probs).copy(),
+                     "fine_probs": _np(st.fine.probs).copy()}}
+
+
+def map_flip_cells(spec, offset, points, mask, pose_a, pose_b, half=None) -> tuple:
+    """The cells of one map plane whose update the rounding of the pose
+    decides, between two poses (world, float): a beam whose endpoint cell
+    (the nearest cell, ``floor(x + 0.5)``) differs between the poses names
+    every cell its update touches at either pose — its ray and endpoint on
+    the pub map (``half`` None: the carve is an integer walk between the
+    sensor's cell and the endpoint's, so no other beam's cells move), its
+    footprint of ``half`` cells round the endpoint on a scan-match map; a
+    sensor cell that differs names every beam. Returns the (H, W) bool
+    image of named cells, the number of beams that flipped and the largest
+    distance, in cells, of a flipped endpoint's coordinate from the cell
+    edge it crossed (within the pose gap's reach of one where the poses
+    are close)."""
+    import torch
+
+    from ..models.grid_map import world_to_map_pose
+    from ..ops.raster import _scan_cells, mark_image_plain
+    from ..utils.geometry import transform_points
+
+    pts = torch.as_tensor(np.asarray(points, np.float32))
+    msk = torch.as_tensor(np.asarray(mask, bool))
+    off = torch.as_tensor(np.asarray(offset, np.float32))
+    (sa, ea, ma), (sb, eb, mb) = (
+        _scan_cells(spec.inv_res, off, pts, msk, torch.as_tensor(np.asarray(p, np.float32)))
+        for p in (pose_a, pose_b))
+    flipped = (ea != eb).any(-1) | (ma != mb)
+    if (sa != sb).any():
+        flipped = ma | mb
+    H, W = spec.height, spec.width
+    if half is None:
+        named = ((mark_image_plain(sa, ea, ma & flipped, H, W) > 0)
+                 | (mark_image_plain(sb, eb, mb & flipped, H, W) > 0)).numpy()
+    else:
+        named = np.zeros((H, W), bool)
+        for e in (ea[flipped].numpy(), eb[flipped].numpy()):
+            for x, y in e:
+                named[max(y - half, 0):max(y + half + 1, 0),
+                      max(x - half, 0):max(x + half + 1, 0)] = True
+    pm = world_to_map_pose(off, spec.inv_res, torch.as_tensor(np.asarray(pose_a, np.float32)))
+    u = transform_points(pm, pts * spec.inv_res).numpy().astype(np.float64) + 0.5
+    d = np.abs(u - np.round(u)).min(-1)
+    f = (flipped & msk).numpy()
+    return named, int(flipped.sum()), float(d[f].max()) if f.any() else 0.0
+
+
+def compare_observations(ref: dict, got: dict, ref_before: dict, got_before: dict,
+                         scan=None, planes=None) -> dict:
+    """Hold one carried step of the port (``got``, from ``observe``)
+    against the reference's (``ref``) at the per-step bars: the same kept
+    and gate decisions; the pose within ``STEP_POS_TOL`` / ``STEP_ANG_TOL``
+    (``pose_bar``: missed, for the caller to classify), the score within
+    ``STEP_SCORE_TOL``, the covariance's positional block within
+    ``STEP_COV_RTOL``; the same edges, closure and solve decisions; after a
+    solve the store's poses within ``SOLVE_POSE_TOL``; and where no map was
+    rebuilt (a solve, a recenter or a grown pub map: ``*_before`` are the
+    engines' ``counts`` before the step), each map plane cell for cell but
+    the cells ``map_flip_cells`` names between the two poses. ``scan``:
+    the step's (points, mask); ``planes``: {plane: (port spec, offset
+    before the step, footprint half-width or None for the pub map)}.
+    Returns the row, with ``failed`` the bars missed."""
+    row: dict = {"kept": [ref["kept"], got["kept"]], "failed": [], "pose_bar": False}
+    fail = row["failed"].append
+    if ref["kept"] != got["kept"]:
+        fail("kept decision")
+    sr, sg = ref["summary"], got["summary"]
+    if (sr is None) != (sg is None):
+        fail("move gate")
+    elif sr is not None:
+        gap = pose_gap(sg[None, :3], sr[None, :3])[0]
+        cr, cg = sr[3:12].reshape(3, 3)[:2, :2], sg[3:12].reshape(3, 3)[:2, :2]
+        scale = max(float(np.abs(cr).max()), 1e-12)
+        row.update(pose_gap_m=float(gap[0]), pose_gap_rad=float(gap[1]),
+                   score_diff=float(abs(sg[14] - sr[14])),
+                   cov_xy_rel_diff=float(np.abs(cg - cr).max() / scale),
+                   gates={"map_updated": [bool(sr[12] > 0.5), bool(sg[12] > 0.5)],
+                          "pose_accepted": [bool(sr[13] > 0.5), bool(sg[13] > 0.5)]})
+        if any(a != b for a, b in row["gates"].values()):
+            fail("gate")
+        row["pose_bar"] = bool(gap[0] > STEP_POS_TOL or gap[1] > STEP_ANG_TOL)
+        if row["score_diff"] > STEP_SCORE_TOL:
+            fail("score")
+        if row["cov_xy_rel_diff"] > STEP_COV_RTOL:
+            fail("covariance")
+    row["links"] = [len(ref["edges"]), len(got["edges"])]
+    row["closures"] = [ref["closures"], got["closures"]]
+    row["solves"] = [ref["solves"], got["solves"]]
+    if ref["edges"] != got["edges"]:
+        fail("links added")
+    if ref["closures"] != got["closures"]:
+        fail("closure decision")
+    solved = [ref["solves"] > ref_before["solves"], got["solves"] > got_before["solves"]]
+    if solved[0] != solved[1]:
+        fail("solve decision")
+    if ref["poses"].shape != got["poses"].shape:
+        fail("store size")
+    elif len(ref["poses"]):
+        g = pose_gap(got["poses"], ref["poses"])
+        row["store_pose_gap"] = [float(g[:, 0].max()), float(g[:, 1].max())]
+        if any(solved) and max(row["store_pose_gap"]) > SOLVE_POSE_TOL:
+            fail("poses after the solve")
+    rebuilt = (any(solved) or ref["recenters"] > ref_before["recenters"]
+               or got["recenters"] > got_before["recenters"]
+               or ref["pub_shape"] != ref_before["pub_shape"]
+               or got["pub_shape"] != got_before["pub_shape"])
+    row["maps_rebuilt"] = bool(rebuilt)
+    row["maps"] = {}
+    for plane in MAP_PLANES:
+        a, b = ref["maps"][plane], got["maps"][plane]
+        if a.shape != b.shape:
+            row["maps"][plane] = f"shapes {list(b.shape)} / {list(a.shape)}"
+            fail(f"{plane} shape")
+            continue
+        differ = a != b
+        row["maps"][plane] = {"differing": int(differ.sum())}
+        if not differ.any() or rebuilt:
+            continue
+        if planes is None or sr is None or sg is None:
+            fail(f"{plane} cells")
+            continue
+        spec, offset, half = planes[plane]
+        named, beams, edge = map_flip_cells(spec, offset, *scan, sr[:3], sg[:3], half)
+        unnamed = int((differ & ~named).sum())
+        row["maps"][plane].update(unnamed=unnamed, flipped_beams=beams,
+                                  edge_dist_max_cells=edge)
+        if unnamed:
+            fail(f"{plane} cells")
+    return row
+
+
+class LockstepReport:
+    """The per-step rows of a lockstep run and its verdict: every step
+    within the per-step bars, but at most ``TIE_FLIP_CAP`` steps whose pose
+    alone missed its bar where the reference's own tiers name a tie flip
+    (``classify_tier``: every score within 1e-5, the flipped candidates
+    within 1e-5 of the line)."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
+        self.rows: list[dict] = []
+
+    def add(self, scan: int, row: dict, tie: dict | None = None) -> dict:
+        """Record step ``scan``'s row (``compare_observations``). ``tie``:
+        for a step whose pose missed its bar, the reference's verdict on
+        it — ``kind`` "tie_flip" with the flipped tiers' margins, or
+        anything else for a step that is no tie flip."""
+        row = dict(row, scan=scan, failed=list(row["failed"]))
+        if row["pose_bar"]:
+            if tie is not None and tie.get("kind") == "tie_flip":
+                row["tie_flip"] = tie
+            else:
+                row["failed"].append("pose")
+                row["not_a_tie_flip"] = tie
+        self.rows.append(row)
+        return row
+
+    @property
+    def tie_flips(self) -> list[dict]:
+        return [r for r in self.rows if "tie_flip" in r]
+
+    def failed(self) -> list[str]:
+        out = [f"scan {r['scan']}: {', '.join(r['failed'])}" for r in self.rows if r["failed"]]
+        if len(self.tie_flips) > TIE_FLIP_CAP:
+            out.append(f"{len(self.tie_flips)} tie flips, more than {TIE_FLIP_CAP}")
+        return out
+
+    def summary(self) -> dict:
+        stepped = [r for r in self.rows if "pose_gap_m" in r]
+        big = lambda k: max((r[k] for r in stepped), default=0.0)
+        return {"name": self.name, "steps": len(self.rows), "stepped": len(stepped),
+                "max_pose_gap_m": big("pose_gap_m"), "max_pose_gap_rad": big("pose_gap_rad"),
+                "max_score_diff": big("score_diff"),
+                "max_cov_xy_rel_diff": big("cov_xy_rel_diff"),
+                "tie_flips": [{"scan": r["scan"], "pose_gap_m": r["pose_gap_m"],
+                               "pose_gap_rad": r["pose_gap_rad"], **r["tie_flip"]}
+                              for r in self.tie_flips],
+                "map_cells_differing": {p: sum(r["maps"][p]["differing"] for r in self.rows
+                                               if isinstance(r["maps"].get(p), dict))
+                                        for p in MAP_PLANES},
+                "failed": self.failed()}

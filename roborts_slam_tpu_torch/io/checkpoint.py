@@ -116,16 +116,24 @@ def save_checkpoint(engine, path: str) -> None:
 def load_checkpoint(path: str, synchronous_backend: bool = True, device=None):
     """Rebuild a SlamEngine from a checkpoint written by this package or by
     the JAX package; returns the engine, on ``device`` (None: the card)."""
+    with np.load(path) as f:
+        z = {k: f[k] for k in f.files}
+    return restore_checkpoint(z, synchronous_backend=synchronous_backend, device=device)
+
+
+def restore_checkpoint(z: dict, synchronous_backend: bool = True, device=None,
+                       **engine_kwargs):
+    """``load_checkpoint`` from the file's arrays, ``z`` (by key, either
+    package's layout); ``engine_kwargs`` go to the engine (``fused_backend``)."""
     from ..engine import SlamEngine
     from ..frontend.processor import FrontendState
     from ..models.grid_map import CountMap, ProbMap
 
-    with np.load(path) as f:
-        z = {k: f[k] for k in f.files}
     cfg = SlamConfig(**json.loads(bytes(z["config_json"]).decode()))
     laser = LaserModel.from_array(z["laser_params"])
     engine = SlamEngine(cfg, laser, world_size=float(z["world_size"]),
-                        synchronous_backend=synchronous_backend, device=device)
+                        synchronous_backend=synchronous_backend, device=device,
+                        **engine_kwargs)
     dev = engine.device
 
     # scan store

@@ -7,7 +7,7 @@
   against), and the two packages' simulators agree bit for bit;
 - one front-end step per configuration from a state that JAX's engine reached
   on the leg, carried into the port, compared stage by stage on the same
-  inputs (``scripts/torch_full_width_parity.py``'s ``compare_step``);
+  inputs (``tests/_torch_lockstep.py``'s ``compare_step``);
 - the tie classifier, and the bars of the ``jax_full_width`` phase;
 - the first 36 scans of leg 3 run free in both engines.
 
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from roborts_slam_tpu_torch.bench import parity
+from tests import _torch_lockstep as L
 
 torch.set_num_threads(1)
 
@@ -190,7 +191,7 @@ def leg3_run(loop_log):
 
 
 def _carry(je, inputs, start, k):
-    tap = P.StepTap(je)
+    tap = L.StepTap(je)
     try:
         for i in range(start, k):
             P.feed(je, inputs, i)
@@ -210,7 +211,7 @@ def one_step(request, loop_log, leg3_run):
         je, seen = leg3_run[1]
     else:
         je, seen = _carry(P.jax_engine(leg, inputs), inputs, 0, k)
-    return leg, P.compare_step(je, P.port_engine(leg, inputs), seen, iterations=False)
+    return leg, L.compare_step(je, P.port_engine(leg, inputs), seen, iterations=False)
 
 
 def test_one_step_from_a_carried_jax_state(one_step):
