@@ -369,7 +369,8 @@ def classify_tier(ref_scores, got_scores, tol: float = K_RESPONSE_FILTER_TOLERAN
             **tie_margins(a, tol)}
 
 
-def edge_flips(spec, params, offset, points, n_valid: int, pose, grid_ref, grid_got) -> dict:
+def edge_flips(spec, params, offset, points, n_valid: int, pose, grid_ref, grid_got,
+               in_map: bool = False) -> dict:
     """Where a tier's two score grids differ on the same input: for each
     candidate whose scores differ beyond 1e-5, the nearest approach of one
     of its samples' cell coordinates ``r + x + 0.5`` (the port's) to a cell
@@ -379,13 +380,16 @@ def edge_flips(spec, params, offset, points, n_valid: int, pose, grid_ref, grid_
     candidate has a sample within 1e-3 cells of an edge, the grids differ
     by rounding at cell edges: ``kind`` "cell_edge_flip". ``spec`` /
     ``params`` / ``offset``: the port's map spec, tier parameters and map
-    offset; ``pose`` the tier's centre in world coordinates."""
+    offset; ``pose`` the tier's centre in world coordinates (``in_map``:
+    in map cells)."""
     import torch
 
     from ..models.grid_map import world_to_map_pose
     from ..ops.correlative import candidate_grid
 
-    c = world_to_map_pose(torch.as_tensor(offset), spec.inv_res, torch.as_tensor(pose))
+    c = torch.as_tensor(pose)
+    if not in_map:
+        c = world_to_map_pose(torch.as_tensor(offset), spec.inv_res, c)
     g = candidate_grid(spec, params, torch.as_tensor(points), n_valid, c)
     sv = g.svalid.numpy()[None, :, None]
     dist = []
@@ -500,8 +504,11 @@ def compare_observations(ref: dict, got: dict, ref_before: dict, got_before: dic
     the cells ``map_flip_cells`` names between the two poses. ``scan``:
     the step's (points, mask); ``planes``: {plane: (port spec, offset
     before the step, footprint half-width or None for the pub map)}.
-    Returns the row, with ``failed`` the bars missed."""
-    row: dict = {"kept": [ref["kept"], got["kept"]], "failed": [], "pose_bar": False}
+    Returns the row, with ``failed`` the bars missed but the pose's and
+    the covariance's: ``pose_bar`` / ``cov_bar`` say whether those missed,
+    for ``LockstepReport.add`` to classify."""
+    row: dict = {"kept": [ref["kept"], got["kept"]], "failed": [], "pose_bar": False,
+                 "cov_bar": False}
     fail = row["failed"].append
     if ref["kept"] != got["kept"]:
         fail("kept decision")
@@ -522,8 +529,7 @@ def compare_observations(ref: dict, got: dict, ref_before: dict, got_before: dic
         row["pose_bar"] = bool(gap[0] > STEP_POS_TOL or gap[1] > STEP_ANG_TOL)
         if row["score_diff"] > STEP_SCORE_TOL:
             fail("score")
-        if row["cov_xy_rel_diff"] > STEP_COV_RTOL:
-            fail("covariance")
+        row["cov_bar"] = bool(row["cov_xy_rel_diff"] > STEP_COV_RTOL)
     row["links"] = [len(ref["edges"]), len(got["edges"])]
     row["closures"] = [ref["closures"], got["closures"]]
     row["solves"] = [ref["solves"], got["solves"]]
@@ -570,12 +576,53 @@ def compare_observations(ref: dict, got: dict, ref_before: dict, got_before: dic
     return row
 
 
+def classify_top(ref_scores, got_scores, k: int = 20, eps: float = 1e-5,
+                 edge: dict | None = None) -> dict:
+    """Tell a flip of the covariance's window from a fault on one tier's
+    penalized score grids (the reference's and the port's, same
+    candidates): the positional covariance weighs the ``k`` best candidates
+    above min(best - 0.1, 0.5) (``positional_covariance``; the first by
+    flat index among equal scores), so where two candidates' scores lie
+    within the last bits of the k-th the window swaps them. ``kind``:
+    "same" (equal windows), "top_flip" (every swapped candidate within
+    ``eps`` of the reference's k-th score, and the scores within ``eps`` or
+    apart only where ``edge`` — ``edge_flips`` on the two grids — names a
+    cell-edge flip, every differing candidate having a sample within 1e-3
+    cells of a cell edge) or "fault"; with the margins."""
+    def window(s):
+        sel = s > min(s.max() - 0.1, 0.5)
+        idx = np.flatnonzero(sel)
+        top = idx[np.argsort(-s[idx], kind="stable")[:k]]
+        return set(top.tolist()), (s[top].min() if top.size else -np.inf)
+
+    a = np.asarray(ref_scores, np.float64).reshape(-1)
+    b = np.asarray(got_scores, np.float64).reshape(-1)
+    (ta, kth), (tb, _) = window(a), window(b)
+    swapped = np.array(sorted(ta ^ tb), np.int64)
+    d = float(np.abs(a - b).max())
+    off = np.abs(a[swapped] - kth) if swapped.size else np.zeros(0)
+    # candidates a cell-edge flip moved, put back: what is left of the swap
+    # must lie within eps of the k-th score
+    moved = np.abs(a - b) > eps
+    at_edges = edge is not None and edge.get("kind") == "cell_edge_flip"
+    if moved.any() and at_edges:
+        tb = window(np.where(moved, a, b))[0]
+    rest = np.array(sorted(ta ^ tb), np.int64)
+    explained = (not moved.any() or at_edges) and (np.abs(a[rest] - kth) <= eps).all()
+    kind = "same" if not swapped.size else "top_flip" if explained else "fault"
+    return {"kind": kind, "scores_max_abs_diff": d, "swapped": int(swapped.size),
+            "swapped_max_dist_to_kth": float(off.max()) if off.size else None,
+            "kth_score": float(kth), **({"cell_edges": edge} if edge is not None else {})}
+
+
 class LockstepReport:
     """The per-step rows of a lockstep run and its verdict: every step
     within the per-step bars, but at most ``TIE_FLIP_CAP`` steps whose pose
-    alone missed its bar where the reference's own tiers name a tie flip
-    (``classify_tier``: every score within 1e-5, the flipped candidates
-    within 1e-5 of the line)."""
+    or positional covariance alone missed its bar where the reference's own
+    tiers name a flip at a discontinuity of the last bits: a tie flip for
+    the pose (``classify_tier``: every score within 1e-5, the flipped
+    candidates within 1e-5 of the line), a window flip for the covariance
+    (``classify_top``)."""
 
     def __init__(self, name: str = ""):
         self.name = name
@@ -583,15 +630,19 @@ class LockstepReport:
 
     def add(self, scan: int, row: dict, tie: dict | None = None) -> dict:
         """Record step ``scan``'s row (``compare_observations``). ``tie``:
-        for a step whose pose missed its bar, the reference's verdict on
-        it — ``kind`` "tie_flip" with the flipped tiers' margins, or
-        anything else for a step that is no tie flip."""
+        for a step whose pose or covariance missed its bar, the reference's
+        verdict on it — ``pose`` / ``cov`` "tie_flip" / "top_flip" with the
+        tiers' margins where each is such a flip."""
         row = dict(row, scan=scan, failed=list(row["failed"]))
-        if row["pose_bar"]:
-            if tie is not None and tie.get("kind") == "tie_flip":
+        tie = tie or {}
+        flipped = ((not row["pose_bar"] or tie.get("pose") == "tie_flip")
+                   and (not row["cov_bar"] or tie.get("cov") == "top_flip"))
+        if row["pose_bar"] or row["cov_bar"]:
+            if flipped:
                 row["tie_flip"] = tie
             else:
-                row["failed"].append("pose")
+                row["failed"] += (["pose"] if row["pose_bar"] else []) + \
+                    (["covariance"] if row["cov_bar"] else [])
                 row["not_a_tie_flip"] = tie
         self.rows.append(row)
         return row

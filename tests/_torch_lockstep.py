@@ -1,18 +1,16 @@
 """The port held against the JAX package one carried step at a time: the
 part that reads the JAX engine (the port itself never imports JAX). The
-per-step bars and the report are the port's, ``roborts_slam_tpu_torch/
-bench/parity.py``; ``scripts/torch_full_width_parity.py`` and the tests
-call what is here.
+carry, the per-step bars and the report are the port's
+(``roborts_slam_tpu_torch/bench/lockstep.py``, ``bench/parity.py``);
+``scripts/torch_full_width_parity.py`` and the tests call what is here.
 
 ``lockstep(je, feed, ...)`` feeds the JAX engine ``je`` its scans one at a
-time; before each, the JAX engine's whole state (front-end maps and
-scalars, scan store, pose graph, gating memory, the float64 host offsets of
-the maps and the map->odom transform) is carried into a fresh port engine
-(``engine_arrays``, ``carry``), both engines take the same scan, and the
-port's step is held against JAX's (``parity.compare_observations``). A step
-whose pose alone misses its bar is diagnosed stage by stage from JAX's
-state (``compare_step``) and counts as a tie flip only where a tier of the
-JAX chain says so (``parity.classify_tier``).
+time; before each, the JAX engine's whole state is carried into a fresh
+port engine, both engines take the same scan, and the port's step is held
+against JAX's (``parity.compare_observations``). A step whose pose or
+covariance alone misses its bar is diagnosed stage by stage from JAX's
+state (``compare_step``) and counts as a flip only where a tier of the two
+chains says so (``parity.classify_tier``, ``parity.classify_top``).
 """
 
 from __future__ import annotations
@@ -23,32 +21,21 @@ import json
 import numpy as np
 import torch
 
+from roborts_slam_tpu_torch.bench import lockstep as port_lockstep
 from roborts_slam_tpu_torch.bench import parity
+from roborts_slam_tpu_torch.bench.lockstep import carry, engine_arrays, state_arrays
 from roborts_slam_tpu_torch.convert import state_from_jax
-from roborts_slam_tpu_torch.io.checkpoint import restore_checkpoint
 
-
-def state_arrays(state) -> dict:
-    """A front-end state (either package's) as NumPy arrays by
-    ``convert.STATE_KEYS`` name, with ``last_step_time``."""
-    to = lambda a: (a.detach().cpu().numpy().copy() if isinstance(a, torch.Tensor)
-                    else np.array(a))       # a copy: the port's step writes in place
-    return {"pub_hits": to(state.pub.hits), "pub_passes": to(state.pub.passes),
-            "pub_offset": to(state.pub.offset),
-            "coarse_probs": to(state.coarse.probs),
-            "coarse_offset": to(state.coarse.offset),
-            "fine_probs": to(state.fine.probs), "fine_offset": to(state.fine.offset),
-            "pose": to(state.pose), "last_map_update_pose": to(state.last_map_update_pose),
-            "map_penalize_times": to(state.map_penalize_times),
-            "scan_index": to(state.scan_index), "last_kept_odom": to(state.last_kept_odom),
-            "last_step_time": to(state.last_step_time)}
+__all__ = ["StepTap", "carry", "classify_step", "compare_step", "engine_arrays", "lockstep",
+           "scans", "state_arrays", "state_sensitivity", "assert_free", "assert_lockstep"]
 
 
 class StepTap:
     """Records what the JAX engine hands its step (blocking, windowed or
     fused) while ``armed``: the front-end state and the scan, before the
     step runs (the step donates the state's buffers), as ``seen``; and the
-    step's packed summary, as ``summary``."""
+    step's packed summary, as ``summary``. As a context manager it is armed
+    on entry and taken off the engine on exit."""
 
     def __init__(self, je):
         import jax
@@ -89,193 +76,60 @@ class StepTap:
         for name, fn in self._orig.items():
             setattr(self._je, name, fn)
 
-
-class PortTap:
-    """While entered, records the packed summary of the port engine's
-    front-end step (blocking, windowed or fused) as ``summary``."""
-
-    NAMES = ("frontend_step", "frontend_step_windowed", "fused_frontend_chain_step")
-
     def __enter__(self):
-        import roborts_slam_tpu_torch.engine as tengine
-
-        self.summary, self._mod = None, tengine
-        self._orig = {n: getattr(tengine, n) for n in self.NAMES}
-
-        def tapped(fn):
-            def run(*args, **kw):
-                out = fn(*args, **kw)
-                s = out[2] if len(out) == 3 else out[1].summary
-                self.summary = np.asarray(s, np.float64)
-                return out
-            return run
-
-        for n, fn in self._orig.items():
-            setattr(tengine, n, tapped(fn))
+        self.armed = True
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self._orig.items():
-            setattr(self._mod, n, fn)
-
-
-def engine_arrays(je) -> dict:
-    """The JAX engine's whole state as the arrays of its checkpoint
-    (``roborts_slam_tpu/io/checkpoint.py``'s keys, taken without its
-    ``finish()``), plus what the checkpoint leaves out: the whole front-end
-    state (``state``, ``state_arrays``), the float64 host offsets of the
-    three maps and the host pose, the map->odom transform and the move
-    gate's memory, all from the engine object."""
-    import dataclasses
-    import json
-
-    st, g = je.store, je.backend.graph
-    n, edges, hist = len(st), g.edges, je._odom_history
-    opt = lambda v: np.full(3, np.nan) if v is None else np.array(v, np.float64)
-    t64 = lambda v: np.float64(np.nan if v is None else v)
-    return dict(
-        config_json=np.frombuffer(json.dumps(dataclasses.asdict(je.config)).encode(), np.uint8),
-        laser_params=je.laser.to_array(),
-        odom_history_t=np.array([h[0] for h in hist]),
-        odom_history_p=np.stack([h[1] for h in hist]) if hist else np.zeros((0, 3)),
-        world_size=np.float64(je.world_size),
-        store_points=(np.stack(st._points) if n
-                      else np.zeros((0, st.max_points, 2), np.float32)),
-        store_masks=np.stack(st._masks) if n else np.zeros((0, st.max_points), bool),
-        store_n_valid=np.asarray(st._n_valid, np.int64),
-        store_poses=st.poses_array() if n else np.zeros((0, 3)),
-        store_odoms=np.asarray(st.odoms) if n else np.zeros((0, 3)),
-        store_times=np.asarray(st.times),
-        store_running_ids=np.asarray(st.running_ids, np.int64),
-        graph_num_vertices=np.int64(g.num_vertices),
-        edge_st=np.array([[e.source, e.target] for e in edges], np.int64).reshape(-1, 2),
-        edge_rel=np.stack([e.rel_pose for e in edges]) if edges else np.zeros((0, 3)),
-        edge_info=np.stack([e.information for e in edges]) if edges else np.zeros((0, 3, 3)),
-        backend_counters=np.array([je.backend.num_loop_closures, je.backend.num_links],
-                                  np.int64),
-        **{k: v for k, v in zip(
-            ("pub_hits", "pub_passes", "pub_offset", "coarse_probs", "coarse_offset",
-             "fine_probs", "fine_offset"),
-            (np.array(a) for a in (je.state.pub.hits, je.state.pub.passes,
-                                   je.state.pub.offset, je.state.coarse.probs,
-                                   je.state.coarse.offset, je.state.fine.probs,
-                                   je.state.fine.offset)))},
-        state_pose=np.array(je.state.pose),
-        state_last_map_update_pose=np.array(je.state.last_map_update_pose),
-        state_map_penalize_times=np.array(je.state.map_penalize_times),
-        state_scan_index=np.array(je.state.scan_index),
-        trajectory=je.trajectory_array() if je.trajectory else np.zeros((0, 4)),
-        last_kept_odom=opt(je._last_kept_odom),
-        last_process_time=t64(je._last_process_time),
-        dev_time_origin=t64(getattr(je, "_dev_time_origin", None)),
-        diag=np.array([je.diag.scans_in, je.diag.scans_processed, je.diag.scans_dropped_gate,
-                       je.diag.scans_dropped_move, je.diag.loop_closures], np.int64),
-        # beyond the checkpoint
-        state=state_arrays(je.state),
-        host_pub_offset=np.array(je._host_pub_off, np.float64),
-        host_coarse_offset=np.array(je._host_coarse_off, np.float64),
-        host_fine_offset=np.array(je._host_fine_off, np.float64),
-        host_pose=np.array(je._host_pose, np.float64),
-        map_to_odom=np.array(je._map_to_odom, np.float64),
-        prev_process_time=t64(je._prev_process_time),
-        move_ref_odom=opt(je._move_ref_odom))
-
-
-def carry(z: dict, **engine_kwargs):
-    """A port engine on the CPU in the state ``engine_arrays`` took:
-    restored as from a checkpoint (``io/checkpoint.py::restore_checkpoint``),
-    then the whole front-end state, the host offsets and pose, map->odom,
-    the move gate's memory and the device clock's origin set from the
-    engine's own values."""
-    te = restore_checkpoint(z, device="cpu", **engine_kwargs)
-    te.state = state_from_jax(z["state"], "cpu")
-    te._host_pose = z["host_pose"].copy()
-    for name in ("pub", "coarse", "fine"):
-        setattr(te, f"_host_{name}_off", z[f"host_{name}_offset"].copy())
-    te._map_to_odom = z["map_to_odom"].copy()
-    nan = lambda v: None if np.isnan(v).any() else v.copy()
-    te._prev_process_time = nan(np.array(z["prev_process_time"]))
-    if te._prev_process_time is not None:
-        te._prev_process_time = float(te._prev_process_time)
-    te._move_ref_odom = nan(z["move_ref_odom"])
-    origin = float(z["dev_time_origin"])      # NaN where the JAX engine set none
-    te._dev_time_origin = None if np.isnan(origin) else origin
-    te._publish_pub_arrays()
-    return te
-
-
-def _planes(te, z) -> dict:
-    """``compare_observations``' planes: the port's spec of each map plane,
-    its offset before the step and its footprint (None for the pub map's
-    carve; a scan-match map's blur half-width, 0 without blur)."""
-    fs, cfg = te.fspec, te.config
-    half = lambda spec, blur: spec.kernel_half if blur else 0
-    return {"pub_hits": (fs.pub_spec, z["pub_offset"], None),
-            "pub_passes": (fs.pub_spec, z["pub_offset"], None),
-            "coarse_probs": (fs.coarse_spec, z["coarse_offset"],
-                             half(fs.coarse_spec, cfg.coarse_map_use_blur)),
-            "fine_probs": (fs.fine_spec, z["fine_offset"],
-                           half(fs.fine_spec, cfg.fine_map_use_blur))}
+        self.armed = False
+        self.close()
 
 
 def classify_step(je, te, seen: dict) -> dict:
-    """The JAX engine's verdict on a step whose pose missed its bar: its
-    stages on JAX's state (``compare_step``), the same input in both
-    packages; "tie_flip" where no stage differs on the same input and a
-    tier of JAX's chain and the port's has tie sets that differ only by
-    candidates within 1e-5 of the line, scores within 1e-5 (the tiers'
-    margins given), else "fault" with the stages that differ."""
+    """The JAX engine's verdict on a step whose pose or covariance missed
+    its bar: its stages on JAX's state (``compare_step``), the same input in
+    both packages, each package along its own chain of tiers. ``pose``
+    "tie_flip" where no stage differs on the same input and a tier's two
+    grids have tie sets that differ only by candidates within 1e-5 of the
+    line, scores within 1e-5 (``parity.classify_tier``); ``cov``
+    "top_flip" where no stage differs and a tier's covariance windows
+    differ only by candidates within 1e-5 of the 20th score or by
+    candidates a cell-edge flip moved (``parity.classify_top``); else
+    "fault"; with the tiers' margins."""
     res = compare_step(je, te, seen, iterations=False)
-    flips = {name: {q: t["own_inputs"][q] for q in (
-        "flipped", "flipped_max_dist_to_line", "scores_max_abs_diff", "ties",
+    same = not res["differ_on_same_input"]
+    ties = {n: {q: t["own_inputs"][q] for q in (
+        "kind", "flipped", "flipped_max_dist_to_line", "scores_max_abs_diff", "ties",
         "lowest_inside_above_line", "closest_outside_below_line")}
-             for name, t in res["tiers"].items() if t["own_inputs"]["kind"] == "tie_flip"}
-    kind = "tie_flip" if flips and not res["differ_on_same_input"] else "fault"
-    return {"kind": kind, "tiers": flips,
-            "differ_on_same_input": res["differ_on_same_input"],
-            "tier_kinds": {n: t["own_inputs"]["kind"] for n, t in res["tiers"].items()}}
+        for n, t in res["tiers"].items()}
+    ft = te.fspec
+    off = seen["state"]["fine_offset"]
+    tops = {n: parity.classify_top(
+        res["_jax_grids"][n], res["_port_grids"][n],
+        edge=parity.edge_flips(ft.fine_spec, getattr(ft.matcher, n), off, seen["points"],
+                               seen["n_valid"], res["tiers"][n]["port_input_pose"],
+                               res["_jax_grids"][n], res["_port_grids"][n]))
+        for n in res["tiers"]}
+    kind = lambda found: found if same else "fault"
+    return {"pose": kind("tie_flip" if any(t["kind"] == "tie_flip" for t in ties.values())
+                         else "fault"),
+            "cov": kind("top_flip" if any(t["kind"] == "top_flip" for t in tops.values())
+                        else "fault"),
+            "tiers": ties, "windows": tops,
+            "differ_on_same_input": res["differ_on_same_input"]}
 
 
 def lockstep(je, feed, name: str = "", classify: bool = True, on_step=None,
-             first=None, **engine_kwargs) -> parity.LockstepReport:
-    """Feed ``feed`` to the JAX engine ``je`` one scan at a time, the port
-    carried into JAX's state before each (a fresh engine on the CPU,
-    ``engine_kwargs`` to its constructor: the same mode as ``je``'s, in its
-    blocking form). ``feed``: (method, args) per scan, ``method`` "process"
-    (ranges, odometry, stamp), "process_points" (points, mask, n_valid,
-    odometry, stamp), or another method both engines have (``finish``,
-    ``force_graph_optimize``: no step, the decisions and poses compared).
-    Each step is held at ``parity.compare_observations``' bars; one that
-    misses its pose bar is classified (``classify_step``) when
-    ``classify``. ``first``: the port engine for the first step (one loaded
-    from a checkpoint of ``je``) in place of a carried one. ``on_step(k,
-    row, je, te)`` is called after each. Returns the
-    ``parity.LockstepReport``."""
-    rep = parity.LockstepReport(name)
-    tap = StepTap(je)
-    try:
-        for k, (method, args) in enumerate(feed):
-            z = engine_arrays(je)
-            te = first if k == 0 and first is not None else carry(z, **engine_kwargs)
-            before = parity.counts(je), parity.counts(te)
-            tap.armed, tap.seen, tap.summary = True, None, None
-            kj = getattr(je, method)(*args)
-            tap.armed = False
-            with PortTap() as pt:
-                kt = getattr(te, method)(*args)
-            seen = tap.seen
-            row = parity.compare_observations(
-                parity.observe(je, kj, tap.summary), parity.observe(te, kt, pt.summary),
-                *before, scan=None if seen is None else (seen["points"], seen["mask"]),
-                planes=_planes(te, z))
-            tie = (classify_step(je, carry(z, **engine_kwargs), seen)
-                   if row["pose_bar"] and classify and seen is not None else None)
-            row = rep.add(k, row, tie)
-            if on_step is not None:
-                on_step(k, row, je, te)
-    finally:
-        tap.close()
-    return rep
+             first=None, report=None, **engine_kwargs) -> parity.LockstepReport:
+    """``bench/lockstep.py``'s ``lockstep`` with the JAX engine ``je`` as the
+    reference: its step recorded by ``StepTap``, a step off its pose or
+    covariance bar classified by ``classify_step`` (when ``classify``); the
+    port engines on the CPU. The other arguments are that function's."""
+    verdict = (lambda z, te, seen, *_: classify_step(je, carry(z, **engine_kwargs), seen))
+    return port_lockstep.lockstep(je, feed, ref_tap=lambda: StepTap(je),
+                                  classify=verdict if classify else False, name=name,
+                                  on_step=on_step, first=first, report=report,
+                                  **engine_kwargs)
 
 
 def _maxdiff(a, b) -> float:
@@ -384,7 +238,7 @@ def compare_step(je, te, seen: dict, iterations: bool = True) -> dict:
     fine_t = (Tt("fine_probs"), Tt("fine_offset"))
     names = ["coarse", "fine", "super_fine"] if coarse_tier else ["fine", "super_fine"]
     out["tiers"] = {}
-    jax_grids = {}       # JAX's penalized grids along its own chain
+    jax_grids, port_grids = {}, {}    # penalized grids along each package's chain
     flipped_at = []
     for name in names:
         pj_, pt_ = getattr(mj, name), getattr(mt, name)
@@ -419,8 +273,8 @@ def compare_step(je, te, seen: dict, iterations: bool = True) -> dict:
                            "response": [float(rx.response), float(rt.response)]},
             "own_inputs": {**own, "pose_max_abs_diff": _maxdiff(rj.pose, rt.pose)},
             "jax_own_vs_at_port_input_pose_diff": _maxdiff(rj.pose, rx.pose),
-            "pose": np.array(rj.pose)}
-        jax_grids[name] = _np(gj)
+            "pose": np.array(rj.pose), "port_input_pose": np.array(pose_t, np.float32)}
+        jax_grids[name], port_grids[name] = _np(gj), _np(gt)
         if same["kind"] == "fault" or out["tiers"][name]["same_input"]["pose_max_abs_diff"] > 1e-5:
             differ.append(f"{name} tier")
         if own["flipped"]:
@@ -514,7 +368,7 @@ def compare_step(je, te, seen: dict, iterations: bool = True) -> dict:
     out["step"] = step
     parted = (gap[0] > parity.POS_TOL or gap[1] > parity.ANG_TOL
               or any(g[0] != g[1] for g in gates.values()))
-    out["_jax_grids"] = jax_grids
+    out["_jax_grids"], out["_port_grids"] = jax_grids, port_grids
     out["differ_on_same_input"] = differ
     out["tie_sets_differ_along_the_chains"] = flipped_at
     if differ:

@@ -19,12 +19,14 @@ import roborts_slam_tpu as J
 import roborts_slam_tpu_torch as T
 import roborts_slam_tpu_torch.io.scenes as tscenes
 from roborts_slam_tpu.io.scan_log import ScanLog as JScanLog
+from roborts_slam_tpu.models.scan import LaserModel as JLaser
 from roborts_slam_tpu_torch.__main__ import main
 from roborts_slam_tpu_torch.bench import parity
 from roborts_slam_tpu_torch.io.pgm import GroundTruthMap
 from roborts_slam_tpu_torch.io.scan_log import ScanLog
 from roborts_slam_tpu_torch.io.simulate import simulate_log
 from roborts_slam_tpu_torch.models.scan import LaserModel
+from tests import _torch_lockstep as L
 
 torch.set_num_threads(1)
 
@@ -145,57 +147,63 @@ def _jax_run(cfg, path, world_size):
     return eng, eng.run_log(log)
 
 
-def test_run_default_config_matches_jax_engine(log_path, tmp_path, capsys):
+FORMS = ["lockstep"] + [f"free-{v}" for v in FREE_VARIANTS]
+
+
+def _check_run(said: str, trec: dict, traj: np.ndarray, ate: bool):
+    """What ``run`` printed and wrote: the port engine's own kept count,
+    the ATE on a log with truth, the trajectory of the kept scans."""
+    assert f"kept {len(trec['kept_ids'])}/{N_SCANS} scans" in said
+    assert traj.shape == (len(trec["kept_ids"]), 4) and len(traj) >= N_SCANS - 3
+    np.testing.assert_allclose(traj[:, 1:], trec["poses"], atol=1e-6)   # six decimals
+    if ate:
+        assert "ATE RMSE:" in said and float(said.split("ATE RMSE:")[1].split()[0]) < 0.1
+
+
+def _cli_case(form, profile, tmp_path):
+    """``free-<seed>``: ``run`` on the room log simulated from that seed
+    against the JAX engine free, at the bars of a whole run (closures and
+    solves equal, kept within one scan, ATE within max(1.25 x JAX's, JAX's
+    + 5 mm); the count of poses beyond 2e-3 m printed). ``lockstep``: the
+    same configuration on ``room_log()``, the engine ``run`` makes carried
+    into the JAX engine's state before each scan, at the per-step bars
+    (pose 1e-5 m / 1e-5 rad, score, covariance, decisions, map cells), at
+    most 3 tie flips."""
+    tmp = str(tmp_path)
+    if form != "lockstep":
+        jrec, trec, said, traj = free_run(int(form.split("-")[1]), profile, tmp)
+        _check_run(said, trec, traj, ate=True)
+        L.assert_free(jrec, trec, f"cli {profile} {form}")
+        return
+    if profile == "default":
+        cfg = J.SlamConfig(max_points=640)
+    else:
+        cfg = J.load_config(real_robot_yaml(os.path.join(tmp, "real_small.yaml")))
+        assert cfg.use_odom_correct and cfg.match_map_window == 6.0
+        assert T.SlamConfig(**dataclasses.asdict(cfg)) == T.load_config(
+            os.path.join(tmp, "real_small.yaml"))
+    log = room_log()
+    je = J.SlamEngine(cfg, JLaser.from_array(log.laser.to_array()), world_size=14.0,
+                      synchronous_backend=True, fused_backend=False)
+    L.assert_lockstep(L.lockstep(je, L.scans(log.ranges, log.odom, log.times),
+                                 name=f"cli {profile}"))
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_run_default_config_matches_jax_engine(tmp_path, form):
     """No ``--config``: ``SlamConfig()`` — the optimize matcher first, the
-    coarse tier where it fails, no match-map window."""
-    out = str(tmp_path / "traj.txt")
-    rc = main(["run", log_path, "--device", "cpu", "--world-size", "14",
-               "--max-points", "640", "--out-trajectory", out])
-    assert rc == 0
-    said = capsys.readouterr().out
-    assert f"/{N_SCANS} scans" in said and "ATE RMSE:" in said
-    traj = np.loadtxt(out)
-    eng, want = _jax_run(J.SlamConfig(max_points=640), log_path, 14.0)
-    assert traj.shape == want.shape and len(traj) >= N_SCANS - 3
-    np.testing.assert_allclose(traj[:, 0], want[:, 0], atol=1e-6)   # kept the same scans
-    assert f"kept {eng.diag.scans_processed}/{N_SCANS} scans" in said
-    d = _traj_diff(traj, want)
-    # the engine bar of tests/test_torch_engine.py (2e-3 m / 2e-3 rad, at
-    # most 3 scans beyond it and none beyond one super-fine candidate step);
-    # the file holds six decimals
-    outliers = (d[:, 1:3].max(1) > 2e-3) | (d[:, 3] > 2e-3)
-    assert outliers.sum() <= 3, d[outliers]
-    assert d[:, 1:3].max() <= 0.01 and d[:, 3].max() <= 0.00349, d.max(0)
-    ate = float(said.split("ATE RMSE:")[1].split()[0])
-    assert ate < 0.1
+    coarse tier where it fails, no match-map window. ``run``'s engine
+    (blocking, fused) against the JAX engine (blocking, unfused) on the
+    room log; the forms as ``_cli_case`` says."""
+    _cli_case(form, "default", tmp_path)
 
 
-def test_run_real_robot_profile_matches_jax_engine(log_path, tmp_path, capsys):
+@pytest.mark.parametrize("form", FORMS)
+def test_run_real_robot_profile_matches_jax_engine(tmp_path, form):
     """``configs/real_robot.yaml`` narrowed to the room (640 points, a 6 m
     match-map window): de-distortion on ingest, the move gate and the
-    window-sized match maps."""
-    with open(REAL_YAML) as f:
-        raw = yaml.safe_load(f)
-    raw.update(max_points=640, match_map_window=6.0)
-    cfg_path = str(tmp_path / "real_small.yaml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(raw, f)
-    out = str(tmp_path / "traj.txt")
-    assert main(["run", log_path, "--config", cfg_path, "--device", "cpu",
-                 "--world-size", "14", "--out-trajectory", out]) == 0
-    said = capsys.readouterr().out
-    traj = np.loadtxt(out)
-    cfg = J.load_config(cfg_path)
-    assert cfg.use_odom_correct and cfg.match_map_window == 6.0
-    assert T.load_config(cfg_path) == T.SlamConfig(**dataclasses.asdict(cfg))
-    eng, want = _jax_run(cfg, log_path, 14.0)
-    assert traj.shape == want.shape and len(traj) >= N_SCANS - 3
-    np.testing.assert_allclose(traj[:, 0], want[:, 0], atol=1e-6)
-    assert f"kept {eng.diag.scans_processed}/{N_SCANS} scans" in said
-    d = _traj_diff(traj, want)
-    outliers = (d[:, 1:3].max(1) > 2e-3) | (d[:, 3] > 2e-3)
-    assert outliers.sum() <= 3, d[outliers]
-    assert d[:, 1:3].max() <= 0.01 and d[:, 3].max() <= 0.00349, d.max(0)
+    window-sized match maps; the forms as ``_cli_case`` says."""
+    _cli_case(form, "real_robot", tmp_path)
 
 
 def test_run_defaults_to_the_card(log_path):

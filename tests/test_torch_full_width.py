@@ -14,6 +14,7 @@
 One torch thread: float sums are then taken in one fixed order."""
 
 import importlib.util
+import json
 import os
 
 import numpy as np
@@ -26,7 +27,6 @@ from tests import _torch_lockstep as L
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SUPER_FINE_STEP = 0.01          # m, the real-robot profile's super-fine step is smaller
 
 
 def _script():
@@ -176,18 +176,20 @@ ONE_SCAN = [("leg1", 70), ("leg3", 41), ("leg4", 29)]
 
 @pytest.fixture(scope="module")
 def leg3_run(loop_log):
-    """Both engines over leg 3's first 36 scans, JAX's on to scan 41 with its
-    state before scan 41 recorded."""
-    inputs = parity.leg_inputs("leg3", loop_log)
+    """Leg 3's first 36 scans: the JAX engine in lockstep (the port carried
+    into its state before each), the port free beside it; then JAX's on to
+    scan 41 with its state before scan 41 recorded. ((JAX's record, the
+    port's free record), (JAX's engine, its state before 41), the lockstep
+    report)."""
+    inputs = leg3_inputs(parity.LOOP_SEED, loop_log)
     je, te = P.jax_engine("leg3", inputs), P.port_engine("leg3", inputs)
-    kept = {"j": [], "t": []}
-    for k in range(36):
-        if P.feed(je, inputs, k):
-            kept["j"].append(k)
-        if P.feed(te, inputs, k):
-            kept["t"].append(k)
-    free = (kept, je.trajectory_array(), te.trajectory_array())
-    return free, _carry(je, inputs, 36, 41)
+    scans = L.scans(inputs["ranges"], inputs["odom"], inputs["times"])
+    rep = L.lockstep(je, scans, name="leg3 first 36")
+    for k in range(len(scans)):
+        P.feed(te, inputs, k)
+    free = (parity.run_record(je, inputs["times"], inputs["gt"]),
+            parity.run_record(te, inputs["times"], inputs["gt"]))
+    return free, _carry(je, parity.leg_inputs("leg3", loop_log), 36, 41), rep
 
 
 def _carry(je, inputs, start, k):
@@ -276,12 +278,37 @@ def free_run(seed: int, loop_log=None) -> tuple:
             parity.run_record(te, inputs["times"], inputs["gt"]))
 
 
-def test_leg3_first_36_scans_free(leg3_run):
-    (kept, tj, tt), _ = leg3_run
-    assert kept["t"] == kept["j"] and len(kept["t"]) >= 20
-    assert tj.shape == tt.shape
-    d = parity.pose_gap(tt[:, 1:4], tj[:, 1:4])
-    outliers = (d[:, 0] > parity.POS_TOL) | (d[:, 1] > parity.ANG_TOL)
-    assert outliers.sum() <= 3, d[outliers]
-    assert d[:, 0].max() <= SUPER_FINE_STEP and d[:, 1].max() <= 0.00349, d.max(0)
-    assert np.median(d[:, 0]) <= 1e-4
+@pytest.mark.parametrize("form", ["lockstep"] + [f"free-{v}" for v in FREE_VARIANTS])
+def test_leg3_first_36_scans_free(leg3_run, loop_log, form):
+    """Leg 3's configuration at full width (``configs/real_robot.yaml``:
+    de-distortion, the 15 m match-map window) over the first 36 scans of
+    the corridor loop. ``lockstep``: each step from the JAX engine's
+    carried state at the per-step bars (pose 1e-5 m / 1e-5 rad, score,
+    covariance, decisions, map cells), at most 3 tie flips.
+    ``free-<seed>``: both engines free over the log simulated from that
+    seed (20: leg 3's own), at the bars of a whole run (the same closures
+    and solves, kept within one scan, ATE within max(1.25 x JAX's, JAX's +
+    5 mm); the count of poses beyond 2e-3 m printed)."""
+    if form == "lockstep":
+        L.assert_lockstep(leg3_run[2])
+        return
+    seed = int(form.split("-")[1])
+    jrec, trec = leg3_run[0] if seed == parity.LOOP_SEED else free_run(seed)
+    report = L.assert_free(jrec, trec, f"leg3 first 36 {form}")
+    assert report["kept"]["port"] >= 20
+
+
+def test_script_lockstep_reports_the_helpers_gaps(leg3_run, loop_log, monkeypatch, capsys):
+    """``scripts/torch_full_width_parity.py --lockstep leg3:8`` runs the
+    shared helper: its per-step lines carry the same pose gaps, map cells
+    and decisions as the helper's report on the same scans."""
+    monkeypatch.setattr(P.parity, "corridor_loop_log", lambda: loop_log)
+    capsys.readouterr()
+    P.lockstep("leg3:8")
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    rows, summary = lines[:-1], lines[-1]
+    assert [r["scan"] for r in rows] == list(range(8)) and summary["leg"] == "leg3"
+    for got, want in zip(rows, leg3_run[2].rows[:8]):
+        assert got["pose_gap"] == [want.get("pose_gap_m"), want.get("pose_gap_rad")]
+        assert got["kept"] == want["kept"] and got["failed"] == want["failed"]
+        assert got["fine_probs"] == want["maps"]["fine_probs"]["differing"]

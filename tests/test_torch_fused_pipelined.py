@@ -29,6 +29,7 @@ from roborts_slam_tpu_torch.models.grid_map import CountMap, ProbMap
 from roborts_slam_tpu_torch.models.scan import LaserModel as TLaser
 from roborts_slam_tpu_torch.models.scan import ranges_to_packed
 from roborts_slam_tpu_torch.ops.raster import stamp_scan, update_count_map
+from tests import _torch_lockstep as L
 
 torch.set_num_threads(1)
 
@@ -37,8 +38,6 @@ SIM_YAML = os.path.join(REPO, "configs", "simulation.yaml")
 OVER = dict(fine_map_resolution=0.02, world_size=24.0, link_scan_max_distance=1.0)
 OUT_AND_BACK = list(range(40)) + list(range(39, -1, -1))
 TIMES = [0.1 * k for k in range(len(OUT_AND_BACK))]
-POS_TOL = ANG_TOL = 2e-3
-SUPER_FINE_STEP = 0.01
 OUT = 40                      # scans on the way out (no chain, no closure yet)
 
 
@@ -98,15 +97,15 @@ def _jax(icra, pipelined=False, **kw):
     return eng
 
 
+def _scans(icra, ks):
+    """``L.lockstep``'s feed of the out-and-back's scans ``ks``."""
+    return [("process", (icra["ranges"][OUT_AND_BACK[k]], icra["odom"][OUT_AND_BACK[k]],
+                         TIMES[k])) for k in ks]
+
+
 def _feed(eng, icra, ks, times=TIMES, order=OUT_AND_BACK):
     for k in ks:
         eng.process(icra["ranges"][order[k]], icra["odom"][order[k]], times[k])
-
-
-def _diff(a, b):
-    d = np.abs(a - b)
-    d[:, 3] = np.abs(np.arctan2(np.sin(d[:, 3]), np.cos(d[:, 3])))
-    return d
 
 
 def _edges(eng):
@@ -302,8 +301,9 @@ def test_device_move_gate_matches_jax(icra):
 def out_and_back(icra):
     """The out-and-back run through the port blocking unfused, fused (its
     device store started at 16 rows, so that it grows under fused appends)
-    and pipelined, and through the JAX engine fused; for each also the
-    trajectory at the end of the way out."""
+    and pipelined, and through the JAX engine fused, fed in lockstep
+    (``lockstep``: the port carried into its state before each scan); for
+    the fused runs also the record at the end of the way out."""
     runs = {}
     for name, make, kw in (("unfused", _port, dict(fused_backend=False)),
                            ("fused", _port, {}), ("pipelined", _port, dict(pipelined=True)),
@@ -311,10 +311,18 @@ def out_and_back(icra):
         eng = make(icra, **kw)
         if make is _port:
             eng.store._DEV_CAP_START = 16
-        _feed(eng, icra, range(OUT))
-        runs[f"{name}_out"] = eng.trajectory_array()
-        _feed(eng, icra, range(OUT, len(OUT_AND_BACK)))
-        eng.finish()
+        out, back = _scans(icra, range(OUT)), _scans(icra, range(OUT, len(OUT_AND_BACK)))
+        if make is _jax:
+            runs["lockstep"] = L.lockstep(eng, out, name="fused")
+        else:
+            _feed(eng, icra, range(OUT))
+        if "fused" in name:
+            runs[f"{name}_out"] = parity.run_record(eng, TIMES)
+        if make is _jax:
+            L.lockstep(eng, back + [("finish", ())], report=runs["lockstep"])
+        else:
+            _feed(eng, icra, range(OUT, len(OUT_AND_BACK)))
+            eng.finish()
         runs[name] = eng
     return runs
 
@@ -336,30 +344,39 @@ def test_fused_matches_unfused(out_and_back):
     _device_rows_are_the_host_rows(f)
 
 
-def test_fused_matches_jax_fused(out_and_back):
-    """Port fused against JAX fused: the same kept scans, links and
-    closures; on the way out the trajectory within the engine bar (2e-3 on
-    all but at most 3 scans, none past one super-fine step), at the end the
-    out-and-back bar of ``test_torch_engine.py`` (the SPA weights
-    edges by angular variances that the last f32 bits move: median 1e-3,
-    maximum 0.01); the same fused steps, and fused hits equal but for
-    tie-flip outliers (a barycenter within 3e-3 m of the 1 m link radius
-    after the closure: at most one here)."""
-    t, j = out_and_back["fused"], out_and_back["jax_fused"]
-    assert len(t.store) == len(j.store)
-    np.testing.assert_array_equal(t.trajectory_array()[:, 0], j.trajectory_array()[:, 0])
-    assert (t.backend.num_links, t.backend.num_loop_closures) == \
-        (j.backend.num_links, j.backend.num_loop_closures)
-    d = _diff(out_and_back["fused_out"], out_and_back["jax_fused_out"])
-    outliers = (d[:, 1:3].max(1) > POS_TOL) | (d[:, 3] > ANG_TOL)
-    assert outliers.sum() <= 3 and d[:, 1:3].max() <= SUPER_FINE_STEP, d.max(0)
-    d = _diff(t.trajectory_array(), j.trajectory_array())
-    assert np.median(d[:, 1:3].max(1)) <= 1e-3 and np.median(d[:, 3]) <= 1e-3
-    assert d[:, 1:3].max() <= SUPER_FINE_STEP and d[:, 3].max() <= 1e-2, d.max(0)
-    assert t.diag.fused_steps == j.diag.fused_steps > 20
-    assert abs(t.backend.num_fused_hits - j.backend.num_fused_hits) <= 1
-    assert t.backend.num_fused_hits + t.backend.num_fused_misses == \
-        j.backend.num_fused_hits + j.backend.num_fused_misses
+FORMS = ["lockstep"] + [f"free-{v}" for v in FREE_VARIANTS]
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_fused_matches_jax_fused(icra, out_and_back, form):
+    """Port fused against JAX fused. ``lockstep``: every step of the
+    out-and-back (fused steps, their chain rows, the closure and its
+    solve) from JAX's carried state at the per-step bars (pose 1e-5 m /
+    1e-5 rad, score, covariance, the same links, closure and solve, then
+    the poses within 1e-3, map cells), at most 3 tie flips. ``free-0``
+    (the ``out_and_back`` fixture's runs): the same fused steps, and fused
+    hits equal but for a tie-flip outlier (a barycenter within 3e-3 m of
+    the 1 m link radius after the closure: at most one here), and the bars
+    of a whole run; ``free-<start>``: those bars on the out-and-back from
+    that offset (closures and solves equal, kept within one scan, RMS gap
+    to JAX within 5 mm, on the way out and at the end; the count of poses
+    beyond 2e-3 m printed)."""
+    if form == "lockstep":
+        L.assert_lockstep(out_and_back["lockstep"])
+        return
+    start = int(form.split("-")[1])
+    if start:
+        runs = free_run(start, "fused")
+    else:
+        t, j = out_and_back["fused"], out_and_back["jax_fused"]
+        assert t.diag.fused_steps == j.diag.fused_steps > 20
+        assert abs(t.backend.num_fused_hits - j.backend.num_fused_hits) <= 1
+        assert t.backend.num_fused_hits + t.backend.num_fused_misses == \
+            j.backend.num_fused_hits + j.backend.num_fused_misses
+        runs = {"out": (out_and_back["jax_fused_out"], out_and_back["fused_out"]),
+                "end": (parity.run_record(j, TIMES), parity.run_record(t, TIMES))}
+    for phase in ("out", "end"):
+        L.assert_free(*runs[phase], f"fused {phase} {form}")
 
 
 # ---- the engine: pipelined ----
@@ -401,30 +418,42 @@ def unclosed(icra):
         eng.pipeline_depth = 3
         _feed(eng, icra, range(OUT))
         eng._drain_pipeline()
-        runs[f"{name}_out"] = eng.trajectory_array()
+        runs[f"{name}_out"] = parity.run_record(eng, TIMES)
         _feed(eng, icra, range(OUT, len(OUT_AND_BACK)))
         eng.finish()
         runs[name] = eng
     return runs
 
 
-def test_pipelined_matches_jax_pipelined(unclosed):
-    """Port pipelined against JAX pipelined where no loop closes: the same
-    kept scans and links, the same fused steps; on the way out the
-    trajectory within the engine bar (2e-3 m / 2e-3 rad on all but at most 3
-    scans, none past one super-fine step), on the way back, where chain links
-    pull the poses, within the out-and-back bar of ``test_torch_engine.py``."""
-    t, j = unclosed["port"], unclosed["jax"]
-    assert t.backend.num_loop_closures == j.backend.num_loop_closures == 0
-    assert t.diag.fused_steps == j.diag.fused_steps > 0
-    np.testing.assert_array_equal(t.trajectory_array()[:, 0], j.trajectory_array()[:, 0])
-    assert t.backend.num_links == j.backend.num_links
-    d = _diff(unclosed["port_out"], unclosed["jax_out"])
-    outliers = (d[:, 1:3].max(1) > POS_TOL) | (d[:, 3] > ANG_TOL)
-    assert outliers.sum() <= 3 and d[:, 1:3].max() <= SUPER_FINE_STEP, d.max(0)
-    d = _diff(t.trajectory_array(), j.trajectory_array())
-    assert np.median(d[:, 1:3].max(1)) <= 1e-3 and np.median(d[:, 3]) <= 1e-3
-    assert d[:, 1:3].max() <= SUPER_FINE_STEP and d[:, 3].max() <= 1e-2, d.max(0)
+@pytest.mark.parametrize("form", FORMS)
+def test_pipelined_matches_jax_pipelined(icra, unclosed, form):
+    """Port pipelined against JAX pipelined where no loop closes.
+    ``lockstep``: the pipeline's blocking form (a pipelined step cannot be
+    carried one scan at a time; the pipeline stays held against the port's
+    own blocking engine in ``test_pipelined_matches_blocking``), every step
+    from JAX's carried state at the per-step bars, at most 3 tie flips.
+    ``free-0`` (the ``unclosed`` fixture's pipelined runs): no closure, the
+    same fused steps and links, and the bars of a whole run;
+    ``free-<start>``: those bars on the out-and-back from that offset, on
+    the way out and at the end."""
+    if form == "lockstep":
+        je = J.SlamEngine(J.load_config(SIM_YAML, **dict(OVER, **UNCLOSED)),
+                          JLaser.from_array(icra["laser"]), synchronous_backend=True)
+        scans = _scans(icra, range(len(OUT_AND_BACK))) + [("finish", ())]
+        L.assert_lockstep(L.lockstep(je, scans, name="pipelined, blocking form"))
+        return
+    start = int(form.split("-")[1])
+    if start:
+        runs = free_run(start, "pipelined")
+    else:
+        t, j = unclosed["port"], unclosed["jax"]
+        assert t.backend.num_loop_closures == j.backend.num_loop_closures == 0
+        assert t.diag.fused_steps == j.diag.fused_steps > 0
+        assert t.backend.num_links == j.backend.num_links
+        runs = {"out": (unclosed["jax_out"], unclosed["port_out"]),
+                "end": (parity.run_record(j, TIMES), parity.run_record(t, TIMES))}
+    for phase in ("out", "end"):
+        L.assert_free(*runs[phase], f"pipelined {phase} {form}")
 
 
 def test_jax_pipeline_parts_at_a_closure(icra, out_and_back):

@@ -24,6 +24,7 @@ import roborts_slam_tpu_torch.io.scan_log as tlog
 import roborts_slam_tpu_torch.models.scan as tscan
 from roborts_slam_tpu_torch.bench import parity
 from roborts_slam_tpu_torch.ops.cuda import build
+from tests import _torch_lockstep as L
 from tests.test_rosbag import _write_bag
 
 torch.set_num_threads(1)
@@ -213,36 +214,41 @@ def free_run(start: int, tmp: str) -> tuple:
     return parity.run_record(je, times), parity.run_record(te, times), te
 
 
-def test_run_stream_matches_jax(tmp_path):
-    """30 scans of the icra log as an RSLG file through each package's
-    ``run_stream``: the same kept stamps, trajectories within the engine bar
-    of test_torch_engine.py."""
-    d = np.load(os.path.join(REPO, "tests", "data", "golden_icra.npz"))
-    n = 30
-    laser = tscan.LaserModel.from_array(d["laser"])
-    path = str(tmp_path / "icra.rslg")
-    tnative.write_rslg(tlog.ScanLog(d["ranges"][:n], d["odom"][:n], d["times"][:n], laser),
-                       path)
-    over = dict(fine_map_resolution=0.02, world_size=24.0)
-    with _closing(jnative.NativeScanStream(path, 270)) as js:
-        je = J.SlamEngine(J.load_config(SIM_YAML, **over), js.laser,
-                          synchronous_backend=True, fused_backend=False)
-        a = je.run_stream(js)
-    with tnative.NativeScanStream(path, 270) as ts:
-        te = T.SlamEngine(T.load_config(SIM_YAML, **over), ts.laser, device="cpu",
-                          synchronous_backend=False)
-        b = te.run_stream(ts)
-    assert te.diag.scans_in == n and len(b) >= 25 and a.shape == b.shape
+@pytest.mark.parametrize("form", ["lockstep"] + [f"free-{v}" for v in FREE_VARIANTS])
+def test_run_stream_matches_jax(tmp_path, form):
+    """30 scans of the icra log as an RSLG file. ``free-<start>``: the scans
+    from that offset through each package's ``run_stream`` (the port
+    asynchronous), at the bars of a whole run (closures and solves equal,
+    kept within one scan, RMS gap to JAX within 5 mm; the count of poses
+    beyond 2e-3 m printed), and the port's pose stream. ``lockstep``: the
+    decoded scans of the first 30 fed through ``process_points``, the
+    port's engine (the asynchronous mode's blocking form) carried into the
+    JAX engine's state before each, at the per-step bars (pose 1e-5 m /
+    1e-5 rad, score, covariance, decisions, map cells), at most 3 tie
+    flips."""
+    if form == "lockstep":
+        d = np.load(os.path.join(REPO, "tests", "data", "golden_icra.npz"))
+        path = str(tmp_path / "icra.rslg")
+        tnative.write_rslg(tlog.ScanLog(d["ranges"][:STREAM_SCANS], d["odom"][:STREAM_SCANS],
+                                        d["times"][:STREAM_SCANS],
+                                        tscan.LaserModel.from_array(d["laser"])), path)
+        with _closing(jnative.NativeScanStream(path, 270)) as js:
+            je = J.SlamEngine(J.load_config(SIM_YAML, fine_map_resolution=0.02, world_size=24.0),
+                              js.laser, synchronous_backend=True, fused_backend=False)
+            feed = [("process_points", (pts, msk, nv, odom, t))
+                    for _, pts, msk, nv, t, odom in js]
+        assert len(feed) == STREAM_SCANS
+        L.assert_lockstep(L.lockstep(je, feed + [("finish", ())], name="run_stream"))
+        return
+    jrec, trec, te = free_run(int(form.split("-")[1]), str(tmp_path))
+    b = te.trajectory_array()
+    assert te.diag.scans_in == STREAM_SCANS and len(b) >= 25
     # the port records odometry on this path too, so the pose stream moves
     # between kept scans: at the last kept stamp it is the last pose (1e-6)
     np.testing.assert_allclose(te.pose_at(b[-1, 0]), b[-1, 1:], atol=1e-6)
-    assert len(te._odom_history) == n
+    assert len(te._odom_history) == STREAM_SCANS
     assert np.abs(te.pose_at(b[0, 0])[:2] - b[-1, 1:3]).max() > 0.1
-    np.testing.assert_array_equal(a[:, 0], b[:, 0])
-    dd = np.abs(a - b)
-    dd[:, 3] = np.abs(np.arctan2(np.sin(dd[:, 3]), np.cos(dd[:, 3])))
-    outliers = (dd[:, 1:3].max(1) > 2e-3) | (dd[:, 3] > 2e-3)
-    assert outliers.sum() <= 3 and dd[:, 1:3].max() <= 0.01, dd.max(0)
+    L.assert_free(jrec, trec, f"run_stream {form}")
 
 
 class _closing:

@@ -82,7 +82,7 @@ def test_perturbed_state_fails_the_step_bar(jax_after, icra):
     rep = L.lockstep(je, _feed(icra, range(12, 13)), first=te)
     row = rep.rows[0]
     assert row["pose_gap_m"] > 5 * parity.STEP_POS_TOL
-    assert "pose" in row["failed"] and row["not_a_tie_flip"]["kind"] == "fault"
+    assert "pose" in row["failed"] and row["not_a_tie_flip"]["pose"] == "fault"
     assert rep.failed() and not rep.tie_flips
     # the same step carried exactly agrees
     assert not L.lockstep(je, _feed(icra, range(13, 15))).failed()
@@ -111,7 +111,9 @@ def test_tie_flips_are_counted_and_capped():
     """A step off its pose bar whose tier grids differ only by a candidate
     pushed 4e-6 across the tie line is a tie flip: counted, with its
     margins, not failed; a step whose grids differ by 1e-4 is not; a fourth
-    tie flip fails the run."""
+    tie flip fails the run. The covariance's window likewise: a swap at the
+    20th score within 1e-5 is a flip, one 3e-3 away is not, unless a
+    cell-edge flip moved the candidate that swapped in."""
     ref = _grid()
     got = ref.copy()
     got[3, 2, 2] -= np.float32(4e-6)
@@ -120,17 +122,30 @@ def test_tie_flips_are_counted_and_capped():
     rep = parity.LockstepReport("made up")
     assert not _row(2e-6)["pose_bar"] and _row(3e-3)["pose_bar"]
     for k in range(3):
-        rep.add(k, _row(3e-3), {"kind": flip["kind"], "tiers": {"super_fine": flip}})
+        rep.add(k, _row(3e-3), {"pose": flip["kind"], "tiers": {"super_fine": flip}})
     rep.add(3, _row(2e-6))
     assert len(rep.tie_flips) == 3 and not rep.failed()
     assert rep.summary()["tie_flips"][0]["tiers"]["super_fine"]["flipped"] == 1
     far = ref.copy()
     far[0, 0, 0] += np.float32(1e-4)
     rep2 = parity.LockstepReport()
-    rep2.add(0, _row(3e-3), {"kind": parity.classify_tier(ref, far)["kind"]})
+    rep2.add(0, _row(3e-3), {"pose": parity.classify_tier(ref, far)["kind"]})
     assert rep2.failed() == ["scan 0: pose"]
-    rep.add(4, _row(3e-3), {"kind": "tie_flip"})
+    rep.add(4, _row(3e-3), {"pose": "tie_flip"})
     assert rep.failed() == ["4 tie flips, more than 3"]
+    # the covariance's window: the 20 best above min(best - 0.1, 0.5)
+    g = np.linspace(0.6, 0.9, 80).astype(np.float32).reshape(5, 4, 4)
+    kth = np.sort(g.reshape(-1))[-20]
+    g[g == np.sort(g.reshape(-1))[-21]] = kth - np.float32(2e-6)      # the 21st, 2e-6 below
+    near = g.copy()
+    near[g == kth - np.float32(2e-6)] = kth + np.float32(2e-6)        # passes the 20th
+    assert parity.classify_top(g, g)["kind"] == "same"
+    assert parity.classify_top(g, near)["kind"] == "top_flip"
+    jump = g.copy()
+    jump[0, 0, 0] = kth + np.float32(3e-3)            # a low candidate jumps in
+    assert parity.classify_top(g, jump)["kind"] == "fault"
+    edge = {"kind": "cell_edge_flip"}
+    assert parity.classify_top(g, jump, edge=edge)["kind"] == "top_flip"
 
 
 def test_map_cells_off_the_flipped_beams_fail():
