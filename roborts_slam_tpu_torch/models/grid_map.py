@@ -137,7 +137,12 @@ def world_to_map_pose(offset, inv_res: float, pose):
 
 
 def map_to_world_pose(offset, inv_res: float, pose):
-    xy = pose[..., :2] / inv_res - offset
+    """Pose variant of ``map_to_world``, rounded as the JAX package's
+    compiled step rounds it: one fused multiply-add by the f32 reciprocal
+    of ``inv_res`` (``ops/xla_rounding.py``)."""
+    from ..ops.xla_rounding import map_to_world_xy
+
+    xy = map_to_world_xy(offset, inv_res, pose[..., :2])
     return torch.cat([xy, pose[..., 2:3]], dim=-1)
 
 
