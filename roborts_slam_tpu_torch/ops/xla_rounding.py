@@ -31,7 +31,9 @@ import math
 import numpy as np
 import torch
 
-TIE_SLOTS = 8              # tie terms folded in XLA's order (more: a plain sum)
+# tie terms folded in XLA's order (more: the plain sums). On leg 3's and leg
+# 4's logs at full width six cover 99 % of the tiers' tie sets (most hold 1-3)
+TIE_SLOTS = 6
 XLA_REDUCE_WINDOW = 32     # XLA's CPU tree-reduction window
 
 
@@ -42,8 +44,12 @@ def fma_f32(a, b, c) -> torch.Tensor:
     the last bit), and a float64 rounded to odd rounds to f32 as the exact
     value does (53 >= 24 + 2 bits). ``a``, ``b``, ``c``: f32 tensors,
     broadcast together."""
-    p = a.double() * b.double()
-    c = c.double()
+    return _sum_f32(a.double() * b.double(), c.double())
+
+
+def _sum_f32(p, c) -> torch.Tensor:
+    """``round_f32(p + c)`` with one rounding, for float64 ``p`` and ``c``
+    whose exact sum is what is wanted (``fma_f32``)."""
     s = p + c
     bb = s - p
     err = (p - (s - bb)) + (c - bb)
@@ -62,7 +68,7 @@ def map_to_world_xy(offset, inv_res: float, xy) -> torch.Tensor:
     """``xy / inv_res - offset`` as XLA compiles it: one fused multiply-add
     by the f32 reciprocal of ``inv_res`` (JAX ``models/grid_map.py``'s
     ``map_to_world_pose`` inside ``jax.jit``)."""
-    r = torch.tensor(reciprocal_f32(inv_res), dtype=torch.float32, device=xy.device)
+    r = torch.full((), reciprocal_f32(inv_res), dtype=torch.float32, device=xy.device)
     return fma_f32(xy, r, -offset)
 
 
@@ -71,73 +77,78 @@ def angle_ramp(start, n: int, step: float) -> torch.Tensor:
     the step: one fused multiply-add per angle (JAX ``ops/correlative.py``'s
     search angles)."""
     ramp = torch.arange(n, dtype=torch.float32, device=start.device)
-    return fma_f32(ramp, torch.tensor(np.float32(step), device=start.device), start)
+    step = torch.full((), float(np.float32(step)), dtype=torch.float32, device=start.device)
+    return fma_f32(ramp, step, start)
 
 
-def _windows(shape) -> tuple[np.ndarray, bool]:
+def _windows(shape, device) -> tuple[torch.Tensor, int]:
     """For a reduction over all of ``shape``: each flat index's window in
-    XLA's tree reduction (row-major over the grid of windows), and whether
-    any dimension is windowed (else the reduction is one fused sequential
-    sum)."""
-    ids = np.zeros(shape, np.int64)
-    windowed = False
+    XLA's tree reduction (row-major over the grid of windows; made on
+    ``device``, no host copy), and the number of windows (1: the reduction
+    is one fused sequential sum)."""
+    ids = torch.zeros(shape, dtype=torch.int64, device=device)
+    windows = 1
     for d, size in enumerate(shape):
-        k = np.arange(size)
-        if size > XLA_REDUCE_WINDOW:
-            windowed = True
-            count = -(-size // XLA_REDUCE_WINDOW)
-            pad = count * XLA_REDUCE_WINDOW - size
-            k = (k + pad // 2) // XLA_REDUCE_WINDOW
-        else:
-            count, k = 1, np.zeros(size, np.int64)
+        count = -(-size // XLA_REDUCE_WINDOW) if size > XLA_REDUCE_WINDOW else 1
+        pad = count * XLA_REDUCE_WINDOW - size
+        k = torch.div(torch.arange(size, device=device) + pad // 2, XLA_REDUCE_WINDOW,
+                      rounding_mode="floor") if count > 1 else torch.zeros(
+                          size, dtype=torch.int64, device=device)
         ids = ids * count + k.reshape([-1 if i == d else 1 for i in range(len(shape))])
-    return ids.reshape(-1), windowed
+        windows *= count
+    return ids.reshape(-1), windows
 
 
-def tie_sums(w, values, slots: int = TIE_SLOTS) -> torch.Tensor:
+def tie_sums(w, values) -> torch.Tensor:
     """``[sum(w)] + [sum(w * v) for v in values]`` over the last three
     dimensions, in the order XLA sums them inside the compiled step (module
     docstring). ``w`` (..., A, Nx, Ny) is zero but on the tied candidates,
-    so only those terms change a sum: up to ``slots`` of them, taken in
+    so only those terms change a sum: up to ``TIE_SLOTS`` of them, taken in
     XLA's order, are folded one at a time (a product rounded, or one fused
     multiply-add, per term); where more candidates tie the plain sums are
-    returned. ``values``: tensors broadcast to ``w``'s shape. Returns
-    (1 + len(values), ...)."""
+    returned, as where more than one dimension is longer than 32 (an order
+    not mirrored; no tier has such a grid). ``values``: tensors broadcast to
+    ``w``'s shape. Returns (1 + len(values), ...)."""
     shape = tuple(w.shape[-3:])
     n = int(np.prod(shape))
     lead = w.shape[:-3]
     dev = w.device
     vals = torch.stack([torch.ones_like(w)] + [v.expand_as(w) for v in values])
     plain = (vals * w).sum(dim=(-3, -2, -1))
-    win, windowed = _windows(shape)
-    order = np.argsort(win * n + np.arange(n), kind="stable")
+    long = sum(size > XLA_REDUCE_WINDOW for size in shape)
+    if long > 1:
+        # XLA's order with more than one windowed dimension is not mirrored
+        # (no tier has one): the plain sums
+        return plain
+    win, windows = _windows(shape, dev)
     wf = w.reshape(*lead, n)
     vf = vals.reshape(len(vals), *lead, n)
-    if not np.array_equal(order, np.arange(n)):
-        perm = torch.as_tensor(order, device=dev)
-        wf, vf = wf[..., perm], vf[..., perm]
-        win = win[order]
+    if shape[0] <= XLA_REDUCE_WINDOW < max(shape[1:]):
+        # an inner dimension windowed too: take the terms window by window
+        order = torch.argsort(win * n + torch.arange(n, device=dev), stable=True)
+        wf, vf, win = wf[..., order], vf[..., order], win[order]
     tied = wf != 0
     rank = torch.cumsum(tied.to(torch.int32), -1) - 1
-    slot = torch.where(tied & (rank < slots), rank, slots).to(torch.int64)
-    pick = lambda src, k: torch.zeros(*src.shape[:-1], slots + 1, dtype=src.dtype,
+    slot = torch.where(tied & (rank < TIE_SLOTS), rank, TIE_SLOTS).to(torch.int64)
+    pick = lambda src, k: torch.zeros(*src.shape[:-1], TIE_SLOTS + 1, dtype=src.dtype,
                                       device=dev).scatter_(-1, slot.expand(k), src)
-    ws = pick(wf, slot.shape)[..., :slots]
-    vs = pick(vf, (len(vals), *slot.shape))[..., :slots]
+    ws = pick(wf, slot.shape)[..., :TIE_SLOTS]
+    vs = pick(vf, (len(vals), *slot.shape))[..., :TIE_SLOTS]
     acc = torch.zeros_like(vs[..., 0])
-    if not windowed:
-        for k in range(slots):
-            acc = fma_f32(ws[..., k], vs[..., k], acc)
+    if windows == 1:
+        prods = ws.double() * vs.double()                 # exact: the FMAs' products
+        for k in range(TIE_SLOTS):
+            acc = _sum_f32(prods[..., k], acc.double())
     else:
-        wins = pick(torch.as_tensor(win, device=dev).expand(slot.shape), slot.shape)
+        wins = pick(win.expand(slot.shape), slot.shape)
         terms = ws * vs                                   # rounded products
         total = torch.zeros_like(acc)
         cur = torch.full(lead, -1, dtype=torch.int64, device=dev)
-        for k in range(slots):
+        for k in range(TIE_SLOTS):
             used = ws[..., k] != 0
             moved = used & (wins[..., k] != cur) & (cur >= 0)
             total = torch.where(moved, total + acc, total)
             acc = torch.where(moved, torch.zeros_like(acc), acc) + terms[..., k]
             cur = torch.where(used, wins[..., k], cur)
         acc = total + acc
-    return torch.where(tied.sum(-1) > slots, plain, acc)
+    return torch.where(tied.sum(-1) > TIE_SLOTS, plain, acc)

@@ -83,14 +83,14 @@ def test_map_to_world_pose_matches_jit(res):
 
 
 def _tie_grids(shape, seed):
-    """N / 4 penalized score grids of ``shape`` with 1 to 8 candidates
-    within 0.01 of the best (the tie set), angles and candidate
+    """N / 4 penalized score grids of ``shape`` with 1 to ``TIE_SLOTS``
+    candidates within 0.01 of the best (the tie set), angles and candidate
     coordinates."""
     rng = np.random.default_rng(seed)
     A, Nx, Ny = shape
     n_grids = N // 4
     s = rng.uniform(0.2, 0.7, (n_grids, A * Nx * Ny)).astype(np.float32)
-    for k, n in enumerate(rng.integers(1, 9, n_grids)):
+    for k, n in enumerate(rng.integers(1, X.TIE_SLOTS + 1, n_grids)):
         idx = rng.choice(A * Nx * Ny, n, replace=False)
         s[k, idx] = np.float32(0.9) - rng.uniform(0, 0.0099, n).astype(np.float32)
         s[k, idx[0]] = np.float32(0.9)
