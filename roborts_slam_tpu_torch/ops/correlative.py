@@ -276,9 +276,7 @@ def find_best_candidate(scores, angles, xs, ys):
     w = m * scores
     # the four sums in the order and with the roundings of the JAX
     # package's compiled step (ops/xla_rounding.py)
-    wsum, sx, sy, sc, ss = tie_sums(w, (xs[..., None, :, None], ys[..., None, None, :],
-                                        torch.cos(angles)[..., :, None, None],
-                                        torch.sin(angles)[..., :, None, None]))
+    wsum, sx, sy, sc, ss = tie_sums(w, xs, ys, torch.cos(angles), torch.sin(angles))
     wsum = torch.clamp(wsum, min=K_DOUBLE_TOLERANCE)
     x, y, tc, ts = sx / wsum, sy / wsum, sc / wsum, ss / wsum
     theta = torch.atan2(ts, tc)

@@ -18,15 +18,13 @@ than JAX run op by op, which the plain PyTorch expressions equal):
   (``tie_sums``).
 
 Each helper takes and returns f32 tensors on any device and gives the same
-bits on the CPU and on the card: ``fma_f32`` computes one f32 fused
-multiply-add exactly from float64 operations (never a contraction the
-compiler may or may not make), and the sums are sequential folds of
-elementwise operations. The plain path and the kernel path both call them.
+bits on the CPU and on the card: ``fma_f32`` forms the product exactly in
+float64 and rounds the float64 sum to f32 (never a contraction the compiler
+may or may not make), and the sums are sequential folds of elementwise
+operations. The plain path and the kernel path both call them.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -38,24 +36,15 @@ XLA_REDUCE_WINDOW = 32     # XLA's CPU tree-reduction window
 
 
 def fma_f32(a, b, c) -> torch.Tensor:
-    """``round_f32(a * b + c)`` with one rounding, as a hardware f32 fused
-    multiply-add gives it: the product of two f32 is exact in float64; the
-    float64 sum is rounded to odd (its rounding error, from TwoSum, sets
-    the last bit), and a float64 rounded to odd rounds to f32 as the exact
-    value does (53 >= 24 + 2 bits). ``a``, ``b``, ``c``: f32 tensors,
-    broadcast together."""
-    return _sum_f32(a.double() * b.double(), c.double())
-
-
-def _sum_f32(p, c) -> torch.Tensor:
-    """``round_f32(p + c)`` with one rounding, for float64 ``p`` and ``c``
-    whose exact sum is what is wanted (``fma_f32``)."""
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf), err))
-    return torch.where((err != 0) & even, toward, s).float()
+    """``a * b + c`` as an f32 fused multiply-add rounds it, from float64:
+    the product of two f32 is exact in float64 and the sum is rounded once
+    to float64, then to f32. That differs from one rounding only where the
+    float64 sum is inexact and lands exactly halfway between two f32 (none
+    in the tests' 10^4 inputs a helper; ``tests/test_torch_xla_rounding.py``
+    builds such a case); the exact form (the sum rounded to odd) costs a
+    dozen more operations a call, each a launch on the card. ``a``, ``b``,
+    ``c``: f32 tensors, broadcast together."""
+    return (a.double() * b.double() + c.double()).float()
 
 
 def reciprocal_f32(x: float) -> float:
@@ -67,88 +56,67 @@ def reciprocal_f32(x: float) -> float:
 def map_to_world_xy(offset, inv_res: float, xy) -> torch.Tensor:
     """``xy / inv_res - offset`` as XLA compiles it: one fused multiply-add
     by the f32 reciprocal of ``inv_res`` (JAX ``models/grid_map.py``'s
-    ``map_to_world_pose`` inside ``jax.jit``)."""
-    r = torch.full((), reciprocal_f32(inv_res), dtype=torch.float32, device=xy.device)
-    return fma_f32(xy, r, -offset)
+    ``map_to_world_pose`` inside ``jax.jit``), in ``fma_f32``'s form."""
+    return (xy.double() * reciprocal_f32(inv_res) - offset.double()).float()
 
 
 def angle_ramp(start, n: int, step: float) -> torch.Tensor:
     """``start + arange(n) * step`` (start (..., 1)) as XLA compiles it inside
     the step: one fused multiply-add per angle (JAX ``ops/correlative.py``'s
-    search angles)."""
-    ramp = torch.arange(n, dtype=torch.float32, device=start.device)
-    step = torch.full((), float(np.float32(step)), dtype=torch.float32, device=start.device)
-    return fma_f32(ramp, step, start)
+    search angles), in ``fma_f32``'s form (each product of a small integer
+    and the f32 step is exact in float64)."""
+    ramp = torch.arange(n, dtype=torch.float64, device=start.device) * float(np.float32(step))
+    return (ramp + start.double()).float()
 
 
-def _windows(shape, device) -> tuple[torch.Tensor, int]:
-    """For a reduction over all of ``shape``: each flat index's window in
-    XLA's tree reduction (row-major over the grid of windows; made on
-    ``device``, no host copy), and the number of windows (1: the reduction
-    is one fused sequential sum)."""
-    ids = torch.zeros(shape, dtype=torch.int64, device=device)
-    windows = 1
-    for d, size in enumerate(shape):
-        count = -(-size // XLA_REDUCE_WINDOW) if size > XLA_REDUCE_WINDOW else 1
-        pad = count * XLA_REDUCE_WINDOW - size
-        k = torch.div(torch.arange(size, device=device) + pad // 2, XLA_REDUCE_WINDOW,
-                      rounding_mode="floor") if count > 1 else torch.zeros(
-                          size, dtype=torch.int64, device=device)
-        ids = ids * count + k.reshape([-1 if i == d else 1 for i in range(len(shape))])
-        windows *= count
-    return ids.reshape(-1), windows
-
-
-def tie_sums(w, values) -> torch.Tensor:
-    """``[sum(w)] + [sum(w * v) for v in values]`` over the last three
-    dimensions, in the order XLA sums them inside the compiled step (module
-    docstring). ``w`` (..., A, Nx, Ny) is zero but on the tied candidates,
-    so only those terms change a sum: up to ``TIE_SLOTS`` of them, taken in
-    XLA's order, are folded one at a time (a product rounded, or one fused
-    multiply-add, per term); where more candidates tie the plain sums are
-    returned, as where more than one dimension is longer than 32 (an order
-    not mirrored; no tier has such a grid). ``values``: tensors broadcast to
-    ``w``'s shape. Returns (1 + len(values), ...)."""
-    shape = tuple(w.shape[-3:])
-    n = int(np.prod(shape))
-    lead = w.shape[:-3]
-    dev = w.device
-    vals = torch.stack([torch.ones_like(w)] + [v.expand_as(w) for v in values])
-    plain = (vals * w).sum(dim=(-3, -2, -1))
-    long = sum(size > XLA_REDUCE_WINDOW for size in shape)
-    if long > 1:
-        # XLA's order with more than one windowed dimension is not mirrored
-        # (no tier has one): the plain sums
+def tie_sums(w, xs, ys, cos, sin) -> torch.Tensor:
+    """The tie average's sums over the last three dimensions of ``w`` (...,
+    A, Nx, Ny) — of ``w``, ``w * xs[kx]``, ``w * ys[ky]``, ``w * cos[a]``,
+    ``w * sin[a]`` (``xs`` (..., Nx), ``ys`` (..., Ny), ``cos`` / ``sin``
+    (..., A)) — in the order XLA sums them inside the compiled step (module
+    docstring). ``w`` is zero but on the tied candidates, so only those
+    terms change a sum: up to ``TIE_SLOTS`` of them, in flat order, are
+    folded one at a time (one fused multiply-add per term; over more than 32
+    angles a product rounded per term, each window of 32 angles summed on
+    its own, then the windows' partials). Where more candidates tie, or a
+    candidate dimension is longer than 32 (an order not mirrored; no tier
+    has one), the plain sums. Returns (5, ...)."""
+    A, Nx, Ny = w.shape[-3:]
+    lead, dev, dims = w.shape[:-3], w.device, (-3, -2, -1)
+    plain = torch.stack([w.sum(dims), (w * xs[..., None, :, None]).sum(dims),
+                         (w * ys[..., None, None, :]).sum(dims),
+                         (w * cos[..., :, None, None]).sum(dims),
+                         (w * sin[..., :, None, None]).sum(dims)])
+    if max(Nx, Ny) > XLA_REDUCE_WINDOW:
         return plain
-    win, windows = _windows(shape, dev)
+    n = A * Nx * Ny
     wf = w.reshape(*lead, n)
-    vf = vals.reshape(len(vals), *lead, n)
-    if shape[0] <= XLA_REDUCE_WINDOW < max(shape[1:]):
-        # an inner dimension windowed too: take the terms window by window
-        order = torch.argsort(win * n + torch.arange(n, device=dev), stable=True)
-        wf, vf, win = wf[..., order], vf[..., order], win[order]
     tied = wf != 0
-    rank = torch.cumsum(tied.to(torch.int32), -1) - 1
-    slot = torch.where(tied & (rank < TIE_SLOTS), rank, TIE_SLOTS).to(torch.int64)
-    pick = lambda src, k: torch.zeros(*src.shape[:-1], TIE_SLOTS + 1, dtype=src.dtype,
-                                      device=dev).scatter_(-1, slot.expand(k), src)
-    ws = pick(wf, slot.shape)[..., :TIE_SLOTS]
-    vs = pick(vf, (len(vals), *slot.shape))[..., :TIE_SLOTS]
-    acc = torch.zeros_like(vs[..., 0])
-    if windows == 1:
-        prods = ws.double() * vs.double()                 # exact: the FMAs' products
+    count = tied.sum(-1)
+    rank = torch.cumsum(tied, -1)                     # 1-based among the tied
+    slot = torch.where(tied & (rank <= TIE_SLOTS), rank - 1, TIE_SLOTS)
+    idx = torch.zeros(*lead, TIE_SLOTS + 1, dtype=torch.int64, device=dev).scatter_(
+        -1, slot, torch.arange(n, device=dev).expand_as(slot))[..., :TIE_SLOTS]
+    used = torch.arange(TIE_SLOTS, device=dev) < count[..., None]
+    ws = torch.where(used, wf.gather(-1, idx), 0.0)
+    a, kx, ky = idx // (Nx * Ny), idx // Ny % Nx, idx % Ny
+    vals = torch.stack([torch.ones_like(ws), xs.gather(-1, kx), ys.gather(-1, ky),
+                        cos.gather(-1, a), sin.gather(-1, a)])
+    acc = torch.zeros_like(vals[..., 0])
+    if A <= XLA_REDUCE_WINDOW:
+        prods = ws.double() * vals.double()           # exact: the FMAs' products
         for k in range(TIE_SLOTS):
-            acc = _sum_f32(prods[..., k], acc.double())
+            acc = (prods[..., k] + acc.double()).float()
     else:
-        wins = pick(win.expand(slot.shape), slot.shape)
-        terms = ws * vs                                   # rounded products
+        pad = -(-A // XLA_REDUCE_WINDOW) * XLA_REDUCE_WINDOW - A
+        win = torch.div(a + pad // 2, XLA_REDUCE_WINDOW, rounding_mode="floor")
+        terms = ws * vals                             # rounded products
+        # a term in a later window than the one before: that window's sum
+        # joins the total first
+        moved = used & (win != torch.cat([win[..., :1], win[..., :-1]], -1))
         total = torch.zeros_like(acc)
-        cur = torch.full(lead, -1, dtype=torch.int64, device=dev)
         for k in range(TIE_SLOTS):
-            used = ws[..., k] != 0
-            moved = used & (wins[..., k] != cur) & (cur >= 0)
-            total = torch.where(moved, total + acc, total)
-            acc = torch.where(moved, torch.zeros_like(acc), acc) + terms[..., k]
-            cur = torch.where(used, wins[..., k], cur)
+            total = torch.where(moved[..., k], total + acc, total)
+            acc = torch.where(moved[..., k], 0.0, acc) + terms[..., k]
         acc = total + acc
-    return torch.where(tied.sum(-1) > TIE_SLOTS, plain, acc)
+    return torch.where(count > TIE_SLOTS, plain, acc)

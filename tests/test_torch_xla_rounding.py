@@ -43,12 +43,14 @@ def _f32_round(x: Fraction) -> np.float32:
     return min(near, key=lambda c: int(np.array(c).view(np.int32)) & 1)
 
 
-def test_fma_f32_is_one_rounding():
-    """``fma_f32`` equals the exactly rounded a * b + c on seeded triples,
-    and on a halfway case where float64 arithmetic alone rounds twice:
-    a * b = 1 + 2^-24 exactly (the midpoint of two f32), c = 2^-80. The sum
-    in float64 drops c and the f32 rounding then ties to even (1.0); one
-    rounding gives 1 + 2^-23. On the card the same float64 operations run
+def test_fma_f32_rounds_once_but_at_halfway_sums():
+    """``fma_f32`` equals the exactly rounded a * b + c on 2000 seeded
+    triples over six decades; it rounds twice (float64, then f32) and so
+    differs from one f32 fused multiply-add only where the float64 sum is
+    inexact and lands exactly halfway between two f32: a * b = 1 + 2^-24
+    exactly (the midpoint of two f32), c = 2^-80. There the float64 sum
+    drops c and the f32 rounding ties to even, 1.0, where one rounding
+    gives 1 + 2^-23. The same float64 operations run on the card
     (``chip_smoke.py``'s ``kernel_vs_plain_lockstep`` compares the bits)."""
     rng = np.random.default_rng(11)
     a, b, c = (rng.standard_normal(2000).astype(np.float32) * 10 ** rng.integers(-3, 4, 2000)
@@ -60,8 +62,8 @@ def test_fma_f32_is_one_rounding():
     a, b, c = (torch.tensor([v], dtype=torch.float32)
                for v in (97 * 257 * 2.0 ** -14, 673 * 2.0 ** -10, 2.0 ** -80))
     assert float(a * b) != 1 + 2.0 ** -24 and a.double() * b.double() == 1 + 2.0 ** -24
-    assert float((a.double() * b.double() + c.double()).float()) == 1.0      # twice rounded
-    assert float(X.fma_f32(a, b, c)) == 1 + 2.0 ** -23
+    exact = _f32_round(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+    assert float(exact) == 1 + 2.0 ** -23 and float(X.fma_f32(a, b, c)) == 1.0
 
 
 @pytest.mark.parametrize("res", RESOLUTIONS)
@@ -124,23 +126,30 @@ def test_tie_sums_match_jit(shape):
         s, ang, xs, ys = _tie_grids(shape, seed=shape[0] * 100 + shape[1] + part)
         best = t(s).amax(dim=(1, 2, 3))
         w = (t(s) >= best[:, None, None, None] - tc.K_RESPONSE_FILTER_TOLERANCE).float() * t(s)
-        got = X.tie_sums(w, (t(xs)[:, None, :, None], t(ys)[:, None, None, :],
-                             t(cos(ang))[:, :, None, None], t(sin(ang))[:, :, None, None]))
+        got = X.tie_sums(w, t(xs), t(ys), t(cos(ang)), t(sin(ang)))
         np.testing.assert_array_equal(got.numpy().T, np.asarray(jsums(s, ang, xs, ys)))
         pose_t = tc.find_best_candidate(t(s), t(ang), t(xs), t(ys))[0].numpy()
         np.testing.assert_array_equal(pose_t[:, :2], np.asarray(jbest(s, ang, xs, ys)[0])[:, :2])
 
 
 def test_tie_sums_past_the_slots_take_the_plain_sums():
-    """More tied candidates than ``TIE_SLOTS``: the plain sums."""
+    """More tied candidates than ``TIE_SLOTS``: the plain sums; one: its
+    products."""
     w = torch.zeros(2, 21, 3, 3)
     w.view(2, -1)[0, :20] = torch.linspace(0.89, 0.9, 20)
-    w.view(2, -1)[1, 5] = 0.9
-    v = torch.rand(2, 21, 3, 3, generator=torch.Generator().manual_seed(0))
-    got = X.tie_sums(w, (v,))                       # (sums, batch)
-    plain = torch.stack([w, w * v]).sum(dim=(-3, -2, -1))
-    assert torch.equal(got[:, 0], plain[:, 0])      # 20 ties: the plain sums
-    assert got[1, 1] == (w[1] * v[1]).view(-1)[5]   # one tie: its product
+    w.view(2, -1)[1, 5] = 0.9                          # angle 0, x 1, y 2
+    g = torch.Generator().manual_seed(0)
+    xs, ys, c, s = torch.rand(2, 3, generator=g), torch.rand(2, 3, generator=g), \
+        torch.rand(2, 21, generator=g), torch.rand(2, 21, generator=g)
+    got = X.tie_sums(w, xs, ys, c, s)                  # (sums, batch)
+    dims = (-3, -2, -1)
+    plain = torch.stack([w.sum(dims), (w * xs[:, None, :, None]).sum(dims),
+                         (w * ys[:, None, None, :]).sum(dims), (w * c[:, :, None, None]).sum(dims),
+                         (w * s[:, :, None, None]).sum(dims)])
+    assert torch.equal(got[:, 0], plain[:, 0])         # 20 ties: the plain sums
+    assert torch.equal(got[:, 1], torch.stack([w[1, 0, 1, 2], w[1, 0, 1, 2] * xs[1, 1],
+                                               w[1, 0, 1, 2] * ys[1, 2], w[1, 0, 1, 2] * c[1, 0],
+                                               w[1, 0, 1, 2] * s[1, 0]]))
 
 
 def test_angle_ramp_mirrors_the_compiled_step():
