@@ -59,6 +59,19 @@ cells that differ. It fails the run if a log's hash differs, a closure count
 differs, a kept count is more than 2 % from JAX's, or the port's ATE exceeds
 max(1.25 x JAX's, JAX's + 5 mm).
 
+``kernel_vs_plain_lockstep`` (after it) holds the card's steps one at a
+time against the plain path: on leg 1's first 20 fed scans and leg 3's
+first 60, the CPU plain engine's whole state is carried to the card before
+each scan (``bench/lockstep.py``), both take the scan, and the card's step
+is held at the per-step bars of ``bench/parity.py`` (pose 1e-5 m / 1e-5
+rad, score 1e-5, positional covariance 1e-3 relative, the same decisions,
+map cells but those a flipped beam names; at most three flips at a
+discontinuity of the last bits, printed with their margins); every kernel
+launch of the card's steps is held against its plain version on the same
+inputs (correlation scores within 2.4e-7, carve cells and ray-check
+counts equal); and the rounding helpers of ``ops/xla_rounding.py`` give
+the same bits on the card as on the CPU.
+
 Three phases run ``parallel/`` on leg 3's state: ``parallel_chain_match``
 (eight of its chains against its newest scan through the sharded gather
 matcher on a one-rank NCCL group and over two gloo ranks sharing the card,
@@ -684,6 +697,118 @@ def parallel_phases(eng3, rr_config, rr_fspec, rr_bspec, dev, acct, backend=None
     del gather_ops, hits3, passes3
 
 
+@contextlib.contextmanager
+def kernels_held_to_plain():
+    """Inside the block every launch of the four kernels' wrappers on card
+    tensors is held against its plain version on the same inputs (run on
+    the card, not counted as a launch): the largest |scores - plain| of the
+    correlation kernels, the carve's differing cells and the ray check's
+    differing counts, in the yielded dict."""
+    from roborts_slam_tpu_torch.ops import correlative, raster, raycast
+    from roborts_slam_tpu_torch.ops.cuda import correlation
+
+    seen = {"correlation_max_abs_diff": 0.0, "carve_cells_differing": 0,
+            "check_counts_differing": 0, "held": Counter()}
+
+    def corr(orig):
+        def run(probs, rx, ry, svalid, xs, ys, default_prob, divisor):
+            out = orig(probs, rx, ry, svalid, xs, ys, default_prob, divisor)
+            if probs.is_cuda:
+                want = correlative.correlation_scores_plain(probs, rx, ry, svalid, xs, ys,
+                                                            default_prob, divisor)
+                seen["correlation_max_abs_diff"] = max(seen["correlation_max_abs_diff"],
+                                                       float((out - want).abs().max()))
+                seen["held"][orig.__name__] += 1
+            return out
+        return run
+
+    def mark(orig):
+        def run(start, end, beam_mask, height, width):
+            out = orig(start, end, beam_mask, height, width)
+            if start.is_cuda:
+                want = raster.mark_image_plain(start, end, beam_mask, height, width)
+                seen["carve_cells_differing"] += int((out != want).sum())
+                seen["held"]["ray_mark_image"] += 1
+            return out
+        return run
+
+    def check(orig):
+        def run(*args):
+            out = orig(*args)
+            if args[0].is_cuda:
+                seen["check_counts_differing"] += int((out != raycast.bad_rays_plain(*args)).sum())
+                seen["held"]["bad_ray_count"] += 1
+            return out
+        return run
+
+    with patched(correlation, "correlation_scores", corr), \
+            patched(correlation, "correlation_scores_v2", corr), \
+            patched(raster, "ray_mark_image", mark), patched(raycast, "bad_ray_count", check):
+        yield seen
+
+
+def rounding_helpers_card_vs_cpu(dev) -> dict:
+    """The three roundings of the JAX package's compiled step that the port
+    mirrors (``ops/xla_rounding.py``) on seeded inputs on the card and on
+    the CPU: the number of results whose bits differ (0 expected: the
+    helpers are float64 operations and sequential folds, the same bits on
+    both devices)."""
+    from roborts_slam_tpu_torch.ops import xla_rounding as X
+
+    g = torch.Generator().manual_seed(3)
+    a, b, c = (torch.randn(1 << 16, generator=g) * 100 for _ in range(3))
+    def ties(A, N):       # 256 grids with 1-6 tied candidates each, and the values
+        w = torch.zeros(256, A * N * N).scatter_(
+            1, torch.randint(0, A * N * N, (256, X.TIE_SLOTS), generator=g), 0.9)
+        w *= torch.rand(256, A * N * N, generator=g) > 0.3
+        w += torch.rand(256, A * N * N, generator=g) * 0.01 * (w > 0)
+        return (w.view(256, A, N, N), torch.rand(256, N, generator=g) * 600,
+                torch.rand(256, N, generator=g) * 600, torch.rand(256, A, generator=g) * 2 - 1,
+                torch.rand(256, A, generator=g) * 2 - 1)
+
+    coarse, fine = ties(101, 9), ties(21, 11)
+    runs = {
+        "fma_f32": lambda d: X.fma_f32(a.to(d), b.to(d), c.to(d)),
+        "map_to_world_xy": lambda d: X.map_to_world_xy(c[:2].to(d), 40.0, (a * 40).to(d)[:, None]
+                                                       .expand(-1, 2).contiguous()),
+        "angle_ramp": lambda d: X.angle_ramp(a[:4096, None].to(d), 101, 0.00349),
+        "tie_sums_windowed": lambda d: X.tie_sums(*(t.to(d) for t in coarse)),
+        "tie_sums_fused": lambda d: X.tie_sums(*(t.to(d) for t in fine))}
+    return {k: int((f(dev).cpu() != f("cpu")).sum()) for k, f in runs.items()}
+
+
+def lockstep_phase(SlamEngine, dev, legs) -> dict:
+    """``kernel_vs_plain_lockstep``: per leg (tag, config, laser, world
+    size, correlation kernel, feed) the port's plain path on the CPU as the
+    reference, carried to the card before each scan
+    (``bench/lockstep.py``), every kernel launch of the card's steps held
+    against its plain version; fails where a step misses the per-step bars
+    beyond three flips, a correlation kernel is more than 2.4e-7 from the
+    plain version, the carve differs in a cell, the ray check in a count,
+    or a rounding helper in a bit between the card and the CPU."""
+    from roborts_slam_tpu_torch.bench import lockstep
+
+    out, t_all = {"legs": {}}, time.perf_counter()
+    for tag, cfg, scan_laser, world_size, version, feed in legs:
+        ref = SlamEngine(cfg, scan_laser, world_size=world_size, device="cpu")
+        t0 = time.perf_counter()
+        with corr_kernel(version), kernels_held_to_plain() as held:
+            rep = lockstep.lockstep(ref, feed, device=dev, name=tag)
+        summary = rep.summary()
+        out["legs"][tag] = {**summary, "corr_kernel": version, "kernels_vs_plain": {
+            **{k: v for k, v in held.items() if k != "held"}, "launches_held": dict(held["held"])},
+            "seconds": time.perf_counter() - t0}
+        assert not summary["failed"], (tag, summary["failed"])
+        assert held["correlation_max_abs_diff"] <= 2.4e-7, (tag, held)
+        assert held["carve_cells_differing"] == 0 and held["check_counts_differing"] == 0, held
+        assert held["held"]["ray_mark_image"] > 0 and held["held"]["bad_ray_count"] > 0, held
+        del ref
+    out["rounding_helpers_card_vs_cpu_bits_differing"] = bits = rounding_helpers_card_vs_cpu(dev)
+    assert not any(bits.values()), bits
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def pose_diff(a, b):
     """max |Δ| of two (N, 3) pose tensors, angles wrapped (±π agree)."""
     d = (a - b).abs()
@@ -795,6 +920,7 @@ def main() -> int:
     LEG1, LEG2 = "main_path", "main_path_back_end"
     LEG3, LEG4 = "main_path_real_robot", "main_path_default_config"
     LEG5 = "main_path_async"
+    LOCKSTEP = "kernel_vs_plain_lockstep"
 
     # ---- phase 3: every kernel against its plain version, on the card, at
     # the shapes of every main path ----
@@ -1951,6 +2077,20 @@ def main() -> int:
               replay(df_config, loop_laser, corridor_log, 40.0, None, 20),
               replay(df_config, loop_laser, corridor_log, 40.0, "cpu", 20),
               configuration="default", scans=20)
+
+    # ---- phase 9b: the card's steps one at a time against the plain path:
+    # before each scan the CPU plain engine's whole state is carried to the
+    # card, both take the scan, the card's step is held at the per-step bars
+    # of bench/parity.py, and each kernel launch of the card's step against
+    # its plain version on the same inputs ----
+    emit({"phase": LOCKSTEP, "device": smi, **lockstep_phase(
+        SlamEngine, dev, [
+            ("leg1", config, laser, 30.0, 1,
+             [("process", (ranges[i], odom[i], feed_times[k]))
+              for k, i in enumerate(order[:20])]),
+            ("leg3", rr_config, loop_laser, None, 2,
+             [("process", (loop_log.ranges[i], loop_log.odom[i], float(loop_log.times[i])))
+              for i in range(60)])])})
     # each remaining matcher option once on the card, 40 scans each; their
     # launches are held to the compared shapes, and listed under leg 4's
     for flag in ("use_fast_correlation_match", "use_running_range_scan_match"):

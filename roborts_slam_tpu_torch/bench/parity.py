@@ -638,6 +638,10 @@ class LockstepReport:
         flipped = ((not row["pose_bar"] or tie.get("pose") == "tie_flip")
                    and (not row["cov_bar"] or tie.get("cov") == "top_flip"))
         if row["pose_bar"] or row["cov_bar"]:
+            # the verdicts on the bars this step missed
+            tie = {q: v for q, v in tie.items()
+                   if not (q in ("pose", "tiers") and not row["pose_bar"])
+                   and not (q in ("cov", "windows") and not row["cov_bar"])}
             if flipped:
                 row["tie_flip"] = tie
             else:

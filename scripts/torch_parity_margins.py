@@ -3,7 +3,7 @@
 the CPU.
 
     python scripts/torch_parity_margins.py [--only engine,cli_default] [--variants 0,10]
-    python scripts/torch_parity_margins.py --table runs/*.jsonl
+    python scripts/torch_parity_margins.py --table runs/*.jsonl [--before earlier/*.jsonl]
 
 Each free-running comparison of the port against the JAX package that the
 tests hold (``tests/test_torch_*.py``) is run over eight variants of its
@@ -152,32 +152,39 @@ def _variants(module):
     return importlib.import_module(module).VARIANTS
 
 
-def table(paths) -> str:
+def _cells(paths) -> dict:
+    """{(comparison, phase): {variant: (cell text, old bar failed)}} of the
+    JSON lines this script printed (files given)."""
+    by: dict = {}
+    for r in (json.loads(line) for p in paths for line in open(p) if line.strip()):
+        if r["phase"] == "steps":
+            t = f"{r['steps_beyond_3e-5']}:{r['max_gap_m'] * 1e3:.3f}"
+        else:
+            part = r["first_parting_scan"]
+            t = (f"{r['beyond_2e-3']}:{r['max_gap_m'] * 1e3:.2f}@{'-' if part is None else part}"
+                 + ("F" if r["free_failed"] else "") + ("" if r["kept_ids_equal"] else "k"))
+        by.setdefault((r["comparison"], r["phase"]), {})[r["variant"]] = (
+            t + ("" if r["old_bar"] else "✗"), not r["old_bar"])
+    return by
+
+
+def table(paths, before=None) -> str:
     """The markdown table of JSON lines this script printed (files given):
     one row per comparison and phase, one cell per variant, ``n:max@k``
     with n the poses beyond 2e-3 m / 2e-3 rad, max the largest gap in mm
     and k the first parting fed scan (- where none); the replay ``n:max``
     with n its steps beyond 3e-5 m. ✗: the test's bar before the lockstep
     form fails; F: a bar of ``parity.compare_free`` fails; k: kept ids
-    differ."""
-    rows = [json.loads(line) for p in paths for line in open(p) if line.strip()]
-    by: dict = {}
-    for r in rows:
-        by.setdefault((r["comparison"], r["phase"]), {})[r["variant"]] = r
+    differ. Last column: the variants whose old bar fails. With ``before``
+    (files of an earlier run) each cell reads "earlier → these"."""
+    now, was = _cells(paths), (_cells(before) if before else None)
     out = []
-    for (name, phase), cells in by.items():
-        txt = []
-        for v in sorted(cells, key=lambda v: list(cells).index(v)):
-            r = cells[v]
-            if phase == "steps":
-                t = f"{r['steps_beyond_3e-5']}:{r['max_gap_m'] * 1e3:.3f}"
-            else:
-                part = r["first_parting_scan"]
-                t = (f"{r['beyond_2e-3']}:{r['max_gap_m'] * 1e3:.2f}@{'-' if part is None else part}"
-                     + ("F" if r["free_failed"] else "") + ("" if r["kept_ids_equal"] else "k"))
-            txt.append(t + ("" if r["old_bar"] else "✗"))
-        fails = sum(not r["old_bar"] for r in cells.values())
-        out.append(f"| {name} {phase} | {' | '.join(txt)} | {fails}/{len(cells)} |")
+    for key, cells in now.items():
+        txt = [c[0] if was is None else f"{was[key][v][0]} → {c[0]}" for v, c in cells.items()]
+        fails = f"{sum(c[1] for c in cells.values())}/{len(cells)}"
+        if was is not None:
+            fails = f"{sum(c[1] for c in was[key].values())}/{len(cells)} → {fails}"
+        out.append(f"| {' '.join(key)} | {' | '.join(txt)} | {fails} |")
     return "\n".join(out)
 
 
@@ -188,9 +195,11 @@ def main(argv=None) -> int:
                     help="comma-separated variants (default: the module's eight)")
     ap.add_argument("--table", nargs="+", metavar="JSONL",
                     help="print the markdown table of earlier runs' lines instead")
+    ap.add_argument("--before", nargs="+", metavar="JSONL",
+                    help="with --table: an earlier run's lines, each cell 'earlier -> these'")
     args = ap.parse_args(argv)
     if args.table:
-        print(table(args.table))
+        print(table(args.table, args.before))
         return 0
     import jax
     import torch
