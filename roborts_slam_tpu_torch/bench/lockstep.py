@@ -192,45 +192,40 @@ def _host(a):
     return a.detach().cpu().numpy().copy() if isinstance(a, torch.Tensor) else np.array(a)
 
 
-def planes(te, z) -> dict:
-    """``compare_observations``' planes: the port's spec of each map plane,
-    its offset before the step and its footprint (None for the pub map's
-    carve; a scan-match map's blur half-width, 0 without blur)."""
-    fs, cfg = te.fspec, te.config
+def planes(te) -> dict:
+    """``compare_observations``' planes after the port's step: the port's
+    spec of each map plane, its offset (moved by a recenter or a grown pub
+    map) and its footprint (None for the pub map's carve; a scan-match
+    map's blur half-width, 0 without blur)."""
+    fs, cfg, st = te.fspec, te.config, te.state
     half = lambda spec, blur: spec.kernel_half if blur else 0
-    return {"pub_hits": (fs.pub_spec, z["pub_offset"], None),
-            "pub_passes": (fs.pub_spec, z["pub_offset"], None),
-            "coarse_probs": (fs.coarse_spec, z["coarse_offset"],
+    off = lambda m: _host(m.offset)
+    return {"pub_hits": (fs.pub_spec, off(st.pub), None),
+            "pub_passes": (fs.pub_spec, off(st.pub), None),
+            "coarse_probs": (fs.coarse_spec, off(st.coarse),
                              half(fs.coarse_spec, cfg.coarse_map_use_blur)),
-            "fine_probs": (fs.fine_spec, z["fine_offset"],
+            "fine_probs": (fs.fine_spec, off(st.fine),
                            half(fs.fine_spec, cfg.fine_map_use_blur))}
 
 
 def classify_by_grids(ref_tiers: list, got_tiers: list) -> dict:
     """A verdict on a step whose pose or covariance missed its bar, from
     the tier grids both engines recorded (``GridTap``) along their own
-    chains: ``pose`` "tie_flip" where a tier's tie sets differ only by
-    candidates within 1e-5 of the line, scores within 1e-5
-    (``parity.classify_tier``); ``cov`` "top_flip" where a tier's
-    covariance windows differ only by candidates within 1e-5 of the 20th
-    score or moved by a cell-edge flip (``parity.classify_top``); else
-    "fault"; with the tiers' margins. The front-end step's tiers are the
-    first three of each list (unbatched grids)."""
+    chains, by ``parity.classify_chain``: ``pose`` "tie_flip" where the
+    first tier whose tie sets differ has them differ only by candidates
+    within 1e-5 of the line, scores within 1e-5 (``parity.classify_tier``);
+    ``cov`` "top_flip" where the first tier whose covariance windows differ
+    has them differ only by candidates within 1e-5 of the 20th score,
+    scores within 1e-5 (``parity.classify_top``); each only where every
+    tier before it is the same; else "fault"; with the tiers' margins. The
+    front-end step's tiers are the first three of each list (unbatched
+    grids)."""
     names = ("coarse", "fine", "super_fine")
     pairs = [(n, a, b) for n, a, b in zip(names, ref_tiers, got_tiers)
              if a["grid"].ndim == 3 and a["grid"].shape == b["grid"].shape]
-    ties, tops = {}, {}
-    for n, a, b in pairs:
-        ties[n] = parity.classify_tier(a["grid"], b["grid"])
-        edge = parity.edge_flips(b["spec"], b["params"], b["offset"], b["points"],
-                                 b["n_valid"], b["center"], a["grid"], b["grid"],
-                                 in_map=True)
-        tops[n] = parity.classify_top(a["grid"], b["grid"], edge=edge)
-    return {"pose": "tie_flip" if any(t["kind"] == "tie_flip" for t in ties.values())
-            else "fault",
-            "cov": "top_flip" if any(t["kind"] == "top_flip" for t in tops.values())
-            else "fault",
-            "tiers": ties, "windows": tops}
+    ties = {n: parity.classify_tier(a["grid"], b["grid"]) for n, a, b in pairs}
+    tops = {n: parity.classify_top(a["grid"], b["grid"]) for n, a, b in pairs}
+    return {**parity.classify_chain(ties, tops), "tiers": ties, "windows": tops}
 
 
 def lockstep(ref, feed, ref_tap=None, classify=None, device="cpu", name: str = "",
@@ -274,7 +269,7 @@ def lockstep(ref, feed, ref_tap=None, classify=None, device="cpu", name: str = "
         row = parity.compare_observations(
             parity.observe(ref, kr, rt.summary), parity.observe(te, kt, pt.summary),
             *before, scan=None if seen is None else (seen["points"], seen["mask"]),
-            planes=planes(te, z))
+            planes=planes(te))
         tie = None
         if (row["pose_bar"] or row["cov_bar"]) and classify is not False and seen is not None:
             tie = classify(z, te, seen, rg.tiers if grids else None,

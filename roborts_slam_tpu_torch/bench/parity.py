@@ -442,7 +442,11 @@ def observe(engine, kept: bool, summary) -> dict:
                       if len(engine.store) else np.zeros((0, 3))),
             "maps": {"pub_hits": _np(st.pub.hits).copy(), "pub_passes": _np(st.pub.passes).copy(),
                      "coarse_probs": _np(st.coarse.probs).copy(),
-                     "fine_probs": _np(st.fine.probs).copy()}}
+                     "fine_probs": _np(st.fine.probs).copy()},
+            "offsets": {"pub_hits": _np(st.pub.offset).copy(),
+                        "pub_passes": _np(st.pub.offset).copy(),
+                        "coarse_probs": _np(st.coarse.offset).copy(),
+                        "fine_probs": _np(st.fine.offset).copy()}}
 
 
 def map_flip_cells(spec, offset, points, mask, pose_a, pose_b, half=None) -> tuple:
@@ -498,12 +502,14 @@ def compare_observations(ref: dict, got: dict, ref_before: dict, got_before: dic
     (``pose_bar``: missed, for the caller to classify), the score within
     ``STEP_SCORE_TOL``, the covariance's positional block within
     ``STEP_COV_RTOL``; the same edges, closure and solve decisions; after a
-    solve the store's poses within ``SOLVE_POSE_TOL``; and where no map was
-    rebuilt (a solve, a recenter or a grown pub map: ``*_before`` are the
-    engines' ``counts`` before the step), each map plane cell for cell but
-    the cells ``map_flip_cells`` names between the two poses. ``scan``:
-    the step's (points, mask); ``planes``: {plane: (port spec, offset
-    before the step, footprint half-width or None for the pub map)}.
+    solve the store's poses within ``SOLVE_POSE_TOL``; and where no solve
+    moved the store's poses (``*_before`` are the engines' ``counts`` before
+    the step), each map plane at the same offset and cell for cell but the
+    cells ``map_flip_cells`` names between the two poses — also on a step
+    that recentered the match maps or grew the pub map, whose rebuild reads
+    the store's carried poses (``maps_rebuilt`` says such a step). ``scan``:
+    the step's (points, mask); ``planes``: {plane: (port spec, offset after
+    the step, footprint half-width or None for the pub map)}.
     Returns the row, with ``failed`` the bars missed but the pose's and
     the covariance's: ``pose_bar`` / ``cov_bar`` say whether those missed,
     for ``LockstepReport.add`` to classify."""
@@ -547,11 +553,11 @@ def compare_observations(ref: dict, got: dict, ref_before: dict, got_before: dic
         row["store_pose_gap"] = [float(g[:, 0].max()), float(g[:, 1].max())]
         if any(solved) and max(row["store_pose_gap"]) > SOLVE_POSE_TOL:
             fail("poses after the solve")
-    rebuilt = (any(solved) or ref["recenters"] > ref_before["recenters"]
-               or got["recenters"] > got_before["recenters"]
-               or ref["pub_shape"] != ref_before["pub_shape"]
-               or got["pub_shape"] != got_before["pub_shape"])
-    row["maps_rebuilt"] = bool(rebuilt)
+    row["maps_rebuilt"] = bool(
+        any(solved) or ref["recenters"] > ref_before["recenters"]
+        or got["recenters"] > got_before["recenters"]
+        or ref["pub_shape"] != ref_before["pub_shape"]
+        or got["pub_shape"] != got_before["pub_shape"])
     row["maps"] = {}
     for plane in MAP_PLANES:
         a, b = ref["maps"][plane], got["maps"][plane]
@@ -559,9 +565,12 @@ def compare_observations(ref: dict, got: dict, ref_before: dict, got_before: dic
             row["maps"][plane] = f"shapes {list(b.shape)} / {list(a.shape)}"
             fail(f"{plane} shape")
             continue
+        if "offsets" in ref and not np.array_equal(ref["offsets"][plane],
+                                                   got["offsets"][plane]):
+            fail(f"{plane} offset")
         differ = a != b
         row["maps"][plane] = {"differing": int(differ.sum())}
-        if not differ.any() or rebuilt:
+        if not differ.any() or any(solved):
             continue
         if planes is None or sr is None or sg is None:
             fail(f"{plane} cells")
@@ -576,8 +585,7 @@ def compare_observations(ref: dict, got: dict, ref_before: dict, got_before: dic
     return row
 
 
-def classify_top(ref_scores, got_scores, k: int = 20, eps: float = 1e-5,
-                 edge: dict | None = None) -> dict:
+def classify_top(ref_scores, got_scores, k: int = 20, eps: float = 1e-5) -> dict:
     """Tell a flip of the covariance's window from a fault on one tier's
     penalized score grids (the reference's and the port's, same
     candidates): the positional covariance weighs the ``k`` best candidates
@@ -585,10 +593,8 @@ def classify_top(ref_scores, got_scores, k: int = 20, eps: float = 1e-5,
     flat index among equal scores), so where two candidates' scores lie
     within the last bits of the k-th the window swaps them. ``kind``:
     "same" (equal windows), "top_flip" (every swapped candidate within
-    ``eps`` of the reference's k-th score, and the scores within ``eps`` or
-    apart only where ``edge`` — ``edge_flips`` on the two grids — names a
-    cell-edge flip, every differing candidate having a sample within 1e-3
-    cells of a cell edge) or "fault"; with the margins."""
+    ``eps`` of the reference's k-th score, the scores within ``eps``) or
+    "fault"; with the margins."""
     def window(s):
         sel = s > min(s.max() - 0.1, 0.5)
         idx = np.flatnonzero(sel)
@@ -601,18 +607,30 @@ def classify_top(ref_scores, got_scores, k: int = 20, eps: float = 1e-5,
     swapped = np.array(sorted(ta ^ tb), np.int64)
     d = float(np.abs(a - b).max())
     off = np.abs(a[swapped] - kth) if swapped.size else np.zeros(0)
-    # candidates a cell-edge flip moved, put back: what is left of the swap
-    # must lie within eps of the k-th score
-    moved = np.abs(a - b) > eps
-    at_edges = edge is not None and edge.get("kind") == "cell_edge_flip"
-    if moved.any() and at_edges:
-        tb = window(np.where(moved, a, b))[0]
-    rest = np.array(sorted(ta ^ tb), np.int64)
-    explained = (not moved.any() or at_edges) and (np.abs(a[rest] - kth) <= eps).all()
+    explained = d <= eps and (off <= eps).all()
     kind = "same" if not swapped.size else "top_flip" if explained else "fault"
     return {"kind": kind, "scores_max_abs_diff": d, "swapped": int(swapped.size),
             "swapped_max_dist_to_kth": float(off.max()) if off.size else None,
-            "kth_score": float(kth), **({"cell_edges": edge} if edge is not None else {})}
+            "kth_score": float(kth)}
+
+
+def classify_chain(ties: dict, tops: dict) -> dict:
+    """The verdict on a step from its tiers in chain order (``ties``:
+    ``classify_tier``'s, ``tops``: ``classify_top``'s, by tier name). The
+    pose's is that of the first tier whose tie sets differ, the
+    covariance's that of the first tier whose windows differ; each counts
+    as a flip only where every tier before that one is "same" (for the
+    covariance, in its tie sets too): a fault in an earlier tier is not
+    excused by a flip in a later one. ``pose`` "tie_flip" / ``cov``
+    "top_flip", else "fault"."""
+    def first(by, flip, also=None):
+        for n in by:
+            if by[n]["kind"] != "same":
+                return flip if by[n]["kind"] == flip else "fault"
+            if also is not None and also[n]["kind"] != "same":
+                return "fault"
+        return "fault"
+    return {"pose": first(ties, "tie_flip"), "cov": first(tops, "top_flip", ties)}
 
 
 class LockstepReport:

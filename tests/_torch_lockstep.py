@@ -10,7 +10,7 @@ port engine, both engines take the same scan, and the port's step is held
 against JAX's (``parity.compare_observations``). A step whose pose or
 covariance alone misses its bar is diagnosed stage by stage from JAX's
 state (``compare_step``) and counts as a flip only where a tier of the two
-chains says so (``parity.classify_tier``, ``parity.classify_top``).
+chains says so (``parity.classify_chain``).
 """
 
 from __future__ import annotations
@@ -88,34 +88,25 @@ class StepTap:
 def classify_step(je, te, seen: dict) -> dict:
     """The JAX engine's verdict on a step whose pose or covariance missed
     its bar: its stages on JAX's state (``compare_step``), the same input in
-    both packages, each package along its own chain of tiers. ``pose``
-    "tie_flip" where no stage differs on the same input and a tier's two
-    grids have tie sets that differ only by candidates within 1e-5 of the
-    line, scores within 1e-5 (``parity.classify_tier``); ``cov``
-    "top_flip" where no stage differs and a tier's covariance windows
-    differ only by candidates within 1e-5 of the 20th score or by
-    candidates a cell-edge flip moved (``parity.classify_top``); else
-    "fault"; with the tiers' margins."""
+    both packages, each package along its own chain of tiers. Where no
+    stage differs on the same input, ``parity.classify_chain`` on the
+    tiers: ``pose`` "tie_flip" where the first tier whose tie sets differ
+    has them differ only by candidates within 1e-5 of the line, scores
+    within 1e-5 (``parity.classify_tier``); ``cov`` "top_flip" where the
+    first tier whose covariance windows differ has them differ only by
+    candidates within 1e-5 of the 20th score, scores within 1e-5
+    (``parity.classify_top``); each only where every tier before it is the
+    same; else "fault"; with the tiers' margins."""
     res = compare_step(je, te, seen, iterations=False)
-    same = not res["differ_on_same_input"]
     ties = {n: {q: t["own_inputs"][q] for q in (
         "kind", "flipped", "flipped_max_dist_to_line", "scores_max_abs_diff", "ties",
         "lowest_inside_above_line", "closest_outside_below_line")}
         for n, t in res["tiers"].items()}
-    ft = te.fspec
-    off = seen["state"]["fine_offset"]
-    tops = {n: parity.classify_top(
-        res["_jax_grids"][n], res["_port_grids"][n],
-        edge=parity.edge_flips(ft.fine_spec, getattr(ft.matcher, n), off, seen["points"],
-                               seen["n_valid"], res["tiers"][n]["port_input_pose"],
-                               res["_jax_grids"][n], res["_port_grids"][n]))
-        for n in res["tiers"]}
-    kind = lambda found: found if same else "fault"
-    return {"pose": kind("tie_flip" if any(t["kind"] == "tie_flip" for t in ties.values())
-                         else "fault"),
-            "cov": kind("top_flip" if any(t["kind"] == "top_flip" for t in tops.values())
-                        else "fault"),
-            "tiers": ties, "windows": tops,
+    tops = {n: parity.classify_top(res["_jax_grids"][n], res["_port_grids"][n])
+            for n in res["tiers"]}
+    verdict = (parity.classify_chain(ties, tops) if not res["differ_on_same_input"]
+               else {"pose": "fault", "cov": "fault"})
+    return {**verdict, "tiers": ties, "windows": tops,
             "differ_on_same_input": res["differ_on_same_input"]}
 
 
@@ -254,7 +245,7 @@ def compare_step(je, te, seen: dict, iterations: bool = True) -> dict:
             pose, cov = torch.as_tensor(pose), torch.as_tensor(cov)
             c = tgm.world_to_map_pose(fine_t[1], spec_t.inv_res, pose)
             grid = tc.penalize_scores(pt_, spec_t, *tc.score_candidates(
-                spec_t, pt_, *fine_t, tp, tm, nv, c), c)
+                spec_t, pt_, *fine_t, tp, tm, nv, c, pose_world=pose), c)
             return grid, tc.correlative_scan_match(spec_t, pt_, *fine_t, tp, tm, nv, pose, cov)
 
         gj, rj = jtier(*fine_j, jnp.asarray(pose_j), jnp.asarray(cov_j), jnv)

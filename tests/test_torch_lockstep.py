@@ -112,8 +112,7 @@ def test_tie_flips_are_counted_and_capped():
     pushed 4e-6 across the tie line is a tie flip: counted, with its
     margins, not failed; a step whose grids differ by 1e-4 is not; a fourth
     tie flip fails the run. The covariance's window likewise: a swap at the
-    20th score within 1e-5 is a flip, one 3e-3 away is not, unless a
-    cell-edge flip moved the candidate that swapped in."""
+    20th score within 1e-5 is a flip, one 3e-3 away is not."""
     ref = _grid()
     got = ref.copy()
     got[3, 2, 2] -= np.float32(4e-6)
@@ -144,8 +143,29 @@ def test_tie_flips_are_counted_and_capped():
     jump = g.copy()
     jump[0, 0, 0] = kth + np.float32(3e-3)            # a low candidate jumps in
     assert parity.classify_top(g, jump)["kind"] == "fault"
-    edge = {"kind": "cell_edge_flip"}
-    assert parity.classify_top(g, jump, edge=edge)["kind"] == "top_flip"
+
+
+def test_a_later_flip_does_not_excuse_an_earlier_fault():
+    """The verdict follows the chain of tiers: a tie flip at the fine tier
+    counts only where the coarse tier is the same; a coarse tier apart by
+    1e-4 makes the step a fault whatever the tiers after it show, and so
+    does a covariance window flip after a tier whose tie sets differ."""
+    ref = _grid()
+    flip, far = ref.copy(), ref.copy()
+    flip[3, 2, 2] -= np.float32(4e-6)
+    far[0, 0, 0] += np.float32(1e-4)
+    tier = lambda g: (parity.classify_tier(ref, g), parity.classify_top(ref, g))
+    (same_t, same_w), (flip_t, flip_w), (far_t, far_w) = (tier(g) for g in (ref, flip, far))
+    chain = lambda *tiers: parity.classify_chain(
+        {n: t for n, (t, _) in zip(("coarse", "fine", "super_fine"), tiers)},
+        {n: w for n, (_, w) in zip(("coarse", "fine", "super_fine"), tiers)})
+    assert flip_t["kind"] == "tie_flip" and far_t["kind"] == "fault"
+    assert chain((same_t, same_w), (flip_t, flip_w), (same_t, same_w))["pose"] == "tie_flip"
+    assert chain((far_t, far_w), (flip_t, flip_w), (same_t, same_w))["pose"] == "fault"
+    assert chain((same_t, same_w), (same_t, same_w), (same_t, same_w))["pose"] == "fault"
+    top = ({"kind": "same"}, {"kind": "top_flip"})
+    assert chain((same_t, same_w), top)["cov"] == "top_flip"
+    assert chain((flip_t, same_w), top)["cov"] == "fault"
 
 
 def test_map_cells_off_the_flipped_beams_fail():
