@@ -772,6 +772,8 @@ def rounding_helpers_card_vs_cpu(dev) -> dict:
         "map_to_world_xy": lambda d: X.map_to_world_xy(c[:2].to(d), 40.0, (a * 40).to(d)[:, None]
                                                        .expand(-1, 2).contiguous()),
         "angle_ramp": lambda d: X.angle_ramp(a[:4096, None].to(d), 101, 0.00349),
+        "candidate_offsets": lambda d: X.candidate_offsets(
+            torch.stack([a, b], -1)[:4096].abs().to(d), 40.0, 4.0, 11, 0.8),
         "tie_sums_windowed": lambda d: X.tie_sums(*(t.to(d) for t in coarse)),
         "tie_sums_fused": lambda d: X.tie_sums(*(t.to(d) for t in fine))}
     return {k: int((f(dev).cpu() != f("cpu")).sum()) for k, f in runs.items()}

@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.grid_map import ProbMapSpec, map_to_world_pose, world_to_map_pose
-from .xla_rounding import angle_ramp, tie_sums
+from .xla_rounding import angle_ramp, candidate_offsets, tie_sums
 
 # constants from correlate_scan_matcher.h:759-763, 1033 and slam_util.h:57-59
 K_ANGULAR_PENALTY_GAIN = 0.25
@@ -110,9 +110,15 @@ def _sample_indices(n_valid: int, use_point_size: int, max_samples: int,
 
 
 def candidate_grid(spec: ProbMapSpec, params: CorrelativeParams,
-                   points, n_valid: int, center_pose_map) -> CandidateGrid:
+                   points, n_valid: int, center_pose_map,
+                   center_m=None) -> CandidateGrid:
     """Search angles, rotated samples and candidate offsets of one tier,
-    in the operation order of the JAX package's ``score_candidates``."""
+    in the operation order of the JAX package's ``score_candidates``.
+    ``center_m``: the centre's world position plus the map offset (...,
+    2), in metres, where the centre was mapped from a world pose in the
+    same step; the candidate offsets are then rounded as the JAX package's
+    compiled step rounds them (``xla_rounding.candidate_offsets``), else
+    as the source reads, from ``center_pose_map``."""
     A, N = params.n_angles, params.n_space
     inv_res = spec.inv_res
     dev = center_pose_map.device
@@ -134,11 +140,14 @@ def candidate_grid(spec: ProbMapSpec, params: CorrelativeParams,
     # candidate offsets in map cells (correlate_scan_matcher.h:546-548)
     space_step = params.search_space_resolution * inv_res
     half = (params.search_space_size * inv_res) * 0.5
-    start_x = center_pose_map[..., 0:1] - half
-    start_y = center_pose_map[..., 1:2] - half
-    steps = torch.arange(N, dtype=torch.float32, device=dev) * space_step
-    xs = start_x + steps
-    ys = start_y + steps
+    if center_m is None:
+        start_x = center_pose_map[..., 0:1] - half
+        start_y = center_pose_map[..., 1:2] - half
+        steps = torch.arange(N, dtype=torch.float32, device=dev) * space_step
+        xs = start_x + steps
+        ys = start_y + steps
+    else:
+        xs, ys = candidate_offsets(center_m, inv_res, half, N, space_step).unbind(-2)
     return CandidateGrid(rx, ry, svalid, divisor, angles, xs, ys)
 
 
@@ -231,15 +240,19 @@ def _batched(fn, grid: CandidateGrid, probs, default_prob: float):
 
 def score_candidates(spec: ProbMapSpec, params: CorrelativeParams,
                      probs, offset, points, mask, n_valid: int,
-                     center_pose_map, scores_fn=correlation_scores_plain):
+                     center_pose_map, scores_fn=correlation_scores_plain,
+                     pose_world=None):
     """Score every (angle, x, y) candidate — with the plain PyTorch version
     unless another ``correlation_scores``-shaped function is given.
 
     Returns (scores (...,A,Nx,Ny), angles (...,A), xs (...,Nx), ys (...,Ny))
-    where xs/ys are candidate sensor positions in map cells. ``offset`` and
-    ``mask`` are unused (the center is already in map cells and valid points
-    are front-packed); they keep the JAX function's signature."""
-    grid = candidate_grid(spec, params, points, n_valid, center_pose_map)
+    where xs/ys are candidate sensor positions in map cells. ``mask`` is
+    unused (valid points are front-packed); it keeps the JAX function's
+    signature. ``pose_world``: the world pose ``center_pose_map`` was
+    mapped from, if it was (``candidate_grid``'s ``center_m``, with
+    ``offset``)."""
+    center_m = None if pose_world is None else pose_world[..., :2] + offset
+    grid = candidate_grid(spec, params, points, n_valid, center_pose_map, center_m)
     scores = _batched(scores_fn, grid, probs, spec.default_prob)
     return scores, grid.angles, grid.xs, grid.ys
 
@@ -404,7 +417,7 @@ def correlative_scan_match(spec: ProbMapSpec, params: CorrelativeParams,
 
     scores, angles, xs, ys = score_candidates(
         spec, params, probs, offset, points, mask, n_valid, center,
-        scores_fn=scores_fn())
+        scores_fn=scores_fn(), pose_world=pose_world)
     scores = penalize_scores(params, spec, scores, angles, xs, ys, center)
     best_pose_map, best_score = find_best_candidate(scores, angles, xs, ys)
 

@@ -1,9 +1,10 @@
-"""The three roundings of the JAX package's compiled step that the port
-mirrors (``roborts_slam_tpu_torch/ops/xla_rounding.py``): each helper held
-bit for bit against ``jax.jit`` of the JAX expression it mirrors, on 10^4
-seeded inputs at the tiers' shapes and the maps' resolutions; the angle
-ramp, which XLA rounds otherwise when jitted alone than inside the step,
-against the step's own outputs through the lockstep tap. And the one f32
+"""The roundings of the JAX package's compiled step that the port mirrors
+(``roborts_slam_tpu_torch/ops/xla_rounding.py``): each helper held bit for
+bit against ``jax.jit`` of the JAX expression it mirrors, on 10^4 seeded
+inputs at the tiers' shapes and the maps' resolutions; the angle ramp and
+the fine tier's candidate offsets, which XLA rounds otherwise when jitted
+alone than inside the step, against the step's own outputs through the
+lockstep tap. And the one f32
 fused multiply-add they rest on, against exact rational arithmetic."""
 
 import os
@@ -186,3 +187,72 @@ def test_angle_ramp_mirrors_the_compiled_step():
         tc.angle_ramp = orig
     print({"bit_equal_steps_of_20": {"angle_ramp": with_helper, "source": with_source}})
     assert with_helper > with_source and with_helper >= 6
+
+
+@pytest.mark.parametrize("n", [9, 3], ids=["coarse", "super_fine"])
+@pytest.mark.parametrize("res", RESOLUTIONS)
+def test_candidate_offsets_match_jit(res, n):
+    """A tier's candidate offsets (``candidate_offsets``) equal ``jax.jit``
+    of JAX's expression — ``world_to_map_pose``, minus the half-width, plus
+    the ramp — bit for bit on 10^4 poses: the centre's product and the
+    subtraction one fused multiply-add, each offset one more; JAX run op by
+    op differs. (The fine tier's 11 offsets, which the standalone jit
+    vectorizes in part as the source reads, are held through the step in
+    ``test_candidate_offsets_mirror_the_compiled_step``.)"""
+    rng = np.random.default_rng(int(res * 1000) + n)
+    inv, size, step_m = 1.0 / res, {9: 0.4, 3: 0.06}[n], {9: 0.05, 3: 0.02}[n]
+    pose = np.stack([rng.uniform(-20, 20, N), rng.uniform(-20, 20, N),
+                     rng.uniform(-3, 3, N)], 1).astype(np.float32)
+    off = rng.uniform(0, 40, (N, 2)).astype(np.float32)
+    step, half = step_m * inv, (size * inv) * 0.5
+
+    def source(o, p):                      # JAX score_candidates' xs and ys
+        c = jgm.world_to_map_pose(o, inv, p)
+        ramp = jnp.arange(n, dtype=jnp.float32) * step
+        return jnp.stack([(c[..., 0:1] - half) + ramp, (c[..., 1:2] - half) + ramp], -2)
+
+    want = np.asarray(jax.jit(source)(off, pose))
+    got = X.candidate_offsets(torch.as_tensor(pose[:, :2] + off), inv, half, n, step).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (np.asarray(source(off, pose)) != want).any()
+
+
+def test_candidate_offsets_mirror_the_compiled_step():
+    """Inside the step the fine tier's offsets are ``candidate_offsets``'
+    (the fusion maps the centre and forms each offset with fused
+    multiply-adds). Held through the lockstep tap: from JAX's carried
+    state over the room log under the real-robot profile (a 0.025 m fine
+    map, 11 offsets a side), the port's steps stay within every bar and
+    give JAX's pose bit for bit on more steps than with the source's
+    rounding of the offsets, whose offsets move a sample across a cell
+    edge and the covariance beyond its bar."""
+    import tempfile
+
+    from tests.test_torch_cli import real_robot_yaml, room_log
+
+    log = room_log()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = J.load_config(real_robot_yaml(os.path.join(tmp, "real_small.yaml")))
+
+    def run():
+        je = J.SlamEngine(cfg, JLaser.from_array(log.laser.to_array()), world_size=14.0,
+                          synchronous_backend=True, fused_backend=False)
+        rep = L.lockstep(je, L.scans(log.ranges, log.odom, log.times), classify=False)
+        return rep, sum(r.get("pose_gap_m") == 0.0 and r.get("pose_gap_rad") == 0.0
+                        for r in rep.rows)
+
+    helper, with_helper = run()
+    orig = tc.candidate_offsets
+
+    def source(center_m, inv_res, half, n, step):
+        start = (center_m * np.float32(inv_res) - np.float32(half))[..., None]
+        return start + torch.arange(n, dtype=torch.float32) * np.float32(step)
+
+    tc.candidate_offsets = source
+    try:
+        src, with_source = run()
+    finally:
+        tc.candidate_offsets = orig
+    print({"bit_equal_steps": {"candidate_offsets": with_helper, "source": with_source},
+           "failed": {"candidate_offsets": helper.failed(), "source": src.failed()}})
+    assert not helper.failed() and with_helper > with_source
