@@ -31,6 +31,12 @@ The main paths:
   written as ``.rslg`` and read through the native decode worker, the back end
   on its worker thread, ``on_pose`` sampling the pose stream at 100 Hz of log
   time and ``on_map_snapshot`` every 50 kept scans.
+  After it, ``main_path_async_drained``: the same engine through the API
+  over leg 3's whole log with the worker's queue drained after every
+  ``process`` call, where the JAX package holds its asynchronous bar
+  (``chain_dispatches <= fused_misses + spa_solves + 4``); leg 5 prints
+  that bar, the worker's longest pass and its largest queue, and does not
+  hold it: how far the worker lags there is a matter of timing.
 
 Every engine runs the fused front-end+chain step, the default (the chain
 batch of the chains predicted for a scan rides its step). Two phases hold
@@ -82,6 +88,14 @@ budget and two gloo ranks at the scaling workload's, and the dense solve,
 against the single solve) and ``log_odds`` (the log-odds map over leg 3's
 kept scans, the carve kernel against the plain path on the CPU). One card
 cannot show a multi-GPU number: these phases show the mechanics only.
+
+``spa_on_device`` (after them, on leg 3's final graph) shows the pose-graph
+solve staying on the card: the engine's solve makes one host read (its
+result), ``lm_solve`` none under ``set_sync_debug_mode("error")``, one CUDA
+graph capture and 49 replays a solve; the graph-replayed solve is timed
+beside the eager masked one and the dense one and held against the eager
+one under deterministic sums (1e-4 m, 1e-5 relative cost) and against the
+dense optimum (5 %, 0.05 m).
 
 The last phase, ``bench_headline``, is ``python -m roborts_slam_tpu_torch
 bench`` (``bench/headline.py``): the two correlation kernels held against the
@@ -353,7 +367,7 @@ def parallel_rank(spec, operands, graphs, budget, device):
         t0 = time.perf_counter()
         poses, cost, iters = solve_pose_graph_sharded(data, gmesh, "graph", *budget)
         sync()
-        out["spa"].append({"poses": poses, "cost": cost, "iters": iters,
+        out["spa"].append({"poses": poses, "cost": cost, "iters": int(iters),
                            "seconds": time.perf_counter() - t0,
                            "host_syncs": spa.host_syncs - syncs,
                            "all_reduces": gmesh.all_reduces - reduces})
@@ -559,21 +573,6 @@ def parallel_phases(eng3, rr_config, rr_fspec, rr_bspec, dev, acct, backend=None
     assert not shapes_par["mark"], shapes_par["mark"]
     acct.account(PAR, shapes_par, acct.ctx)
 
-    @contextlib.contextmanager
-    def deterministic():
-        """``torch.use_deterministic_algorithms`` inside the block: the
-        card's ``index_add_`` then sums in a fixed order (warnings for ops
-        that have no such mode, the cuBLAS products, silenced)."""
-        before = (torch.are_deterministic_algorithms_enabled(),
-                  torch.is_deterministic_algorithms_warn_only_enabled())
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            with warnings.catch_warnings():
-                warnings.filterwarnings("ignore", message=".*deterministic.*")
-                yield
-        finally:
-            torch.use_deterministic_algorithms(before[0], warn_only=before[1])
-
     def compared(got, ref):
         (gp, gc), (rp, rc) = got, ref
         return {"max_pose_diff": pose_diff(gp.cpu(), rp.cpu()),
@@ -600,18 +599,19 @@ def parallel_phases(eng3, rr_config, rr_fspec, rr_bspec, dev, acct, backend=None
         refs = {}
         syncs = spa.host_syncs
         (p, c, it), sec = timed(lambda: spa.solve_pose_graph(g, *budget_scaling))
-        said["single_scaling"] = {"seconds": sec, "iters": it, "cost": float(c),
+        said["single_scaling"] = {"seconds": sec, "iters": int(it), "cost": float(c),
                                   "host_syncs": spa.host_syncs - syncs}
         refs["scaling"] = (p, c)
         syncs, reduces = spa.host_syncs, gmesh1.all_reduces
         (p1, c1, it1), sec = timed(lambda: solve_pose_graph_sharded(g, gmesh1, "graph",
                                                                     *budget_full))
-        one_said = {"seconds": sec, "iters": it1, "cost": float(c1),
+        one_said = {"seconds": sec, "iters": int(it1), "cost": float(c1),
                "host_syncs": spa.host_syncs - syncs, "all_reduces": gmesh1.all_reduces - reduces}
         with deterministic():
             syncs = spa.host_syncs
             (pd_, cd_, itd), sec = timed(lambda: spa.solve_pose_graph(g, *budget_full))
-            said["single_full_deterministic"] = {"seconds": sec, "iters": itd, "cost": float(cd_),
+            said["single_full_deterministic"] = {"seconds": sec, "iters": int(itd),
+                                                 "cost": float(cd_),
                                                  "host_syncs": spa.host_syncs - syncs}
             (pd1, cd1, _), sec_one = timed(lambda: solve_pose_graph_sharded(
                 g, gmesh1, "graph", *budget_full))
@@ -818,6 +818,167 @@ def pose_diff(a, b):
     return float(d.max())
 
 
+def syncs_of(fn, *a, **kw):
+    """``fn(*a, **kw)`` with the implicit synchronisations of the CUDA
+    calls it makes reported (``set_sync_debug_mode("warn")``). Returns
+    its result and where each was called, as "file:line" (the notice that
+    the mode is a prototype, which torch gives once a process, is none)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` inside the block: the
+    card's ``index_add_`` then sums in a fixed order (warnings for ops
+    that have no such mode, the cuBLAS products, silenced)."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*deterministic.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+@contextlib.contextmanager
+def graph_calls():
+    """Counts of CUDA graph captures and replays made inside the block."""
+    calls = {"captures": 0, "replays": 0}
+
+    def counting(key):
+        def wrapper_of(orig):
+            def inner(self, *a, **kw):
+                calls[key] += 1
+                return orig(self, *a, **kw)
+            return inner
+        return wrapper_of
+
+    with patched(torch.cuda.CUDAGraph, "capture_begin", counting("captures")), \
+            patched(torch.cuda.CUDAGraph, "replay", counting("replays")):
+        yield calls
+
+
+@contextlib.contextmanager
+def worker_passes(SlamEngine):
+    """Every back-end pass made inside the block, as (seconds, scans it
+    took): the asynchronous worker's stalls."""
+    passes = []
+
+    def wrapper_of(orig):
+        def inner(self, batch):
+            t = time.perf_counter()
+            try:
+                return orig(self, batch)
+            finally:
+                passes.append((time.perf_counter() - t, len(batch)))
+        return inner
+
+    with patched(SlamEngine, "_backend_pass", wrapper_of):
+        yield passes
+
+
+def passes_said(passes) -> dict:
+    longest = max(passes, default=(0.0, 0))
+    return {"worker_passes": len(passes), "worker_longest_pass_s": longest[0],
+            "worker_longest_pass_scans": longest[1],
+            "worker_queue_max": max((k for _, k in passes), default=0)}
+
+
+def spa_on_device(eng3, dev, report3) -> dict:
+    """The phase ``spa_on_device``: the pose-graph solve on leg 3's final
+    graph. The engine's own solve (``Backend._solve_and_correct``, its
+    corrections not applied and its counters put back) with every implicit
+    synchronisation named by file and line: the host reads (1 expected,
+    ``poses.cpu()``) apart from the copies that pack the graph into the
+    card; ``lm_solve`` under ``set_sync_debug_mode("error")`` (a
+    synchronisation raises); then, from the final poses perturbed (seed 0,
+    node 0 kept: a solve that starts off the optimum, as a closure's does),
+    the graph-replayed solve, the eager masked one and the dense one timed,
+    with CUDA graph captures and replays counted; the graph-replayed solve
+    held against the eager masked one under deterministic sums at the SPA
+    bars (1e-4 m, 1e-5 relative cost; the same operations, so bit for bit
+    expected) and printed beside it in the default mode (atomic sums); and
+    from the final poses, the optimum, against the dense solve at the bar of
+    ``parallel_spa`` (5 %, 0.05 m)."""
+    from roborts_slam_tpu_torch.backend import spa
+
+    back, n = eng3.backend, len(eng3.store)
+    final = back.graph.as_solver_data(eng3.store.poses_array(), dev)
+    noise = np.random.default_rng(0).normal(0, [0.05, 0.05, 0.01], (n, 3))
+    noise[0] = 0
+    start = final._replace(poses=final.poses + torch.as_tensor(noise, dtype=torch.float32,
+                                                                device=dev))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        with graph_calls() as calls:
+            t = time.perf_counter()
+            out = fn()
+            host = time.perf_counter() - t
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        return out, {"seconds": seconds, "host_seconds": host, **calls}
+
+    def compared(got, ref):
+        return {"max_pose_diff": pose_diff(got[0], ref[0]),
+                "cost_rel_diff": abs(float(got[1]) - float(ref[1])) / abs(float(ref[1])),
+                "iters": [int(got[2]), int(ref[2])] if len(got) > 2 else None,
+                "bit_equal": torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])}
+
+    said = {"nodes": int(final.poses.shape[0]), "edges": int(final.edge_ij.shape[0]),
+            "leg3_spa_solves": report3["spa_solves"],
+            "leg3_solve_and_correct_s": report3["solve_and_correct_s"]}
+    kept = (back.on_corrections, back.num_solves, back.solve_time_s)
+    back.on_corrections = None
+    try:
+        (_, where), said["engine_solve"] = timed(lambda: syncs_of(back._solve_and_correct))
+    finally:
+        back.on_corrections, back.num_solves, back.solve_time_s = kept
+    packing = "roborts_slam_tpu_torch/backend/pose_graph.py:"
+    reads = [w for w in where if not w.startswith(packing)]
+    said["engine_solve"].update(host_reads=len(reads), host_reads_where=reads,
+                                copies_in=len(where) - len(reads))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spa.lm_solve(start)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    said["implicit_syncs_in_lm_solve"] = 0      # one would have raised above
+    rep, said["replayed"] = timed(lambda: spa.solve_pose_graph(start))
+    eager, said["eager_masked"] = timed(lambda: spa.lm_solve(start, replay=False))
+    syncs = spa.host_syncs
+    dense, said["dense"] = timed(lambda: spa.solve_pose_graph_dense(start))
+    said["dense"]["host_syncs"] = spa.host_syncs - syncs
+    said["replayed"].update(iters=int(rep[2]), cost=float(rep[1]))
+    said["replayed_vs_eager_default_mode"] = compared(rep, eager)
+    with deterministic():
+        said["replayed_vs_eager_deterministic"] = compared(spa.solve_pose_graph(start),
+                                                           spa.lm_solve(start, replay=False))
+    opt = spa.solve_pose_graph(final)
+    said["dense_vs_replayed_from_optimum"] = compared(spa.solve_pose_graph_dense(final), opt)
+    emit({"phase": "spa_on_device", **said})
+    eng = said["engine_solve"]
+    assert eng["host_reads"] == 1 and "backend/processor.py:" in reads[0], eng
+    assert eng["captures"] == 1 and eng["replays"] == 49, eng
+    assert said["replayed"]["captures"] == 1 and said["eager_masked"]["captures"] == 0, said
+    det = said["replayed_vs_eager_deterministic"]
+    assert det["max_pose_diff"] <= 1e-4 and det["cost_rel_diff"] <= 1e-5, det
+    d = said["dense_vs_replayed_from_optimum"]
+    assert d["cost_rel_diff"] < 0.05 and d["max_pose_diff"] < 0.05, d
+    assert all(bool(torch.isfinite(t).all()) for t in (*rep[:2], *eager[:2], *dense))
+    return said
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -921,7 +1082,7 @@ def main() -> int:
     loop_scans = scan_set(loop_log.ranges, loop_laser, loop_log.odom)
     LEG1, LEG2 = "main_path", "main_path_back_end"
     LEG3, LEG4 = "main_path_real_robot", "main_path_default_config"
-    LEG5 = "main_path_async"
+    LEG5, LEG5D = "main_path_async", "main_path_async_drained"
     LOCKSTEP = "kernel_vs_plain_lockstep"
 
     # ---- phase 3: every kernel against its plain version, on the card, at
@@ -1683,7 +1844,7 @@ def main() -> int:
     dilate_ms = time_ms(lambda: raster.dilate_with_kernel(img, bs.blur_kernel()),
                         reps=10, warm=2, inner=2)
     emit({"phase": "breakdown", "spa_solve_seconds": solve_s,
-          "spa_lm_iterations": lm_iters, "spa_host_syncs_per_solve": solve_syncs,
+          "spa_lm_iterations": int(lm_iters), "spa_host_syncs_per_solve": solve_syncs,
           "graph_nodes": int(data.poses.shape[0]), "graph_edges": int(data.edge_ij.shape[0]),
           "rebuild_all_maps_seconds": rebuild_s, "rebuild_scans": kept,
           "chain_match_b4_ms": chain_ms, "dilate_b4_2432_ms": dilate_ms,
@@ -1870,26 +2031,13 @@ def main() -> int:
     parallel_phases(eng3, rr_config, rr_fspec, rr_bspec, dev, types.SimpleNamespace(
         reset_counts=reset_counts, read_counts=read_counts, read_shapes=read_shapes,
         shapes_said=shapes_said, account=account, relist=relist_rr_k1, ctx=ctx_rr1))
+    spa_on_device(eng3, dev, report3)
     del eng3
 
     # ---- phase 7b: leg 3's log and profile through the API in the JAX
     # engine's other two modes, against leg 3 (fused, blocking) ----
     dispatches = {"all": 0, "steady": 0, "steady_syncs": 0, "where": Counter(),
                   "other_where": Counter()}
-
-    def syncs_of(fn, *a, **kw):
-        """``fn(*a, **kw)`` with the implicit synchronisations of the CUDA
-        calls it makes reported (``set_sync_debug_mode("warn")``). Returns
-        its result and where each was called, as "file:line"."""
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = fn(*a, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return out, [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
-                     if "synchroniz" in str(w.message)]
 
     # the counter sees a synchronisation where there is one: a host read,
     # and a copy from pageable host memory
@@ -2142,7 +2290,7 @@ def main() -> int:
     # (the worker's chain batch sizes vary with its drains)
     relist_rr_k1(LEG5, ("corr", "mark", "check"),
                  lambda key: key in optional or "chain_b" in key)
-    with corr_kernel(1):
+    with corr_kernel(1), worker_passes(SlamEngine) as passes5:
         eng5, report5, shapes5 = run_cli(
             ["run", rslg_path, "--config", rr_yaml, "--async", "--out-map", out_map,
              "--checkpoint", end_ckpt], "leg 5", setup=set_hooks)
@@ -2156,7 +2304,13 @@ def main() -> int:
         map_snapshot_values=sorted({v for vs in hooks["snapshots"] for v in vs}),
         leg3_ate_rmse_m=report3["ate_rmse_m"],
         leg3_replay_ms_per_scan_fed=report3["replay_ms_per_scan_fed"],
-        worker_share_of_replay=report5["backend_s"] / report5["replay_s"])
+        replay_ms_per_scan_fed_vs_leg3=report5["replay_ms_per_scan_fed"]
+        / report3["replay_ms_per_scan_fed"],
+        worker_share_of_replay=report5["backend_s"] / report5["replay_s"],
+        # the JAX package's bar for its asynchronous engine, as it stands
+        # here: held on the drained run below, where the JAX test holds it
+        async_bar=report5["fused_misses"] + report5["spa_solves"] + 4,
+        **passes_said(passes5))
     emit({"phase": LEG5, "corr_kernel": 1, **report5})
     assert report5["entry"] == "run_stream(NativeScanStream)", report5["entry"]
     assert not eng5.synchronous_backend and eng5._backend_thread is None
@@ -2167,12 +2321,10 @@ def main() -> int:
     batches5 = report5["chain_dispatches"] + report5["fused_steps"]
     assert batches5 > 0 and report5["launches_in_chain_matches"]["correlation"] \
         == 3 * batches5, report5["launches_in_chain_matches"]
-    # the JAX package's bar for its asynchronous fused engine
-    # (tests/test_engine_features.py:641-647): the worker takes the chain
-    # rows from its queue; separate batches only on misses and corrections
+    # the worker takes the chain rows from its queue; how many separate
+    # batches it makes beyond its misses depends on how far it lags (the
+    # JAX package's bar is held on the drained run below)
     assert report5["fused_steps"] > 0 and report5["fused_hits"] > 0, report5
-    assert report5["chain_dispatches"] <= report5["fused_misses"] + report5["spa_solves"] + 4, \
-        (report5["chain_dispatches"], report5["fused_misses"], report5["spa_solves"])
     assert report5["loop_closures"] >= 1, "leg 5 closed no loop"
     assert report5["ate_rmse_m"] <= max(2 * report3["ate_rmse_m"], 0.15), report5["ate_rmse_m"]
     kept5 = report5["kept"]
@@ -2201,6 +2353,60 @@ def main() -> int:
     assert torch.equal(back.state.pub.hits, live.hits)
     del back, eng5, live, hits5, passes5, dpts, dmsk, dposes
     account(LEG5, shapes5, ctx_rr1)
+
+    # ---- phase 10b: leg 5's engine with the worker drained after every
+    # scan, where the JAX package holds its asynchronous bar
+    # (tests/test_engine_features.py:618-647: the queue emptied after each
+    # ``process`` call, then chain_dispatches <= fused_misses + spa_solves
+    # + 4). Leg 3's whole log through the API, first kernel, so that its
+    # closure and the solve are inside the run ----
+    relist_rr_k1(LEG5D, ("corr", "mark", "check"),
+                 lambda key: key in optional or "chain_b" in key)
+    with corr_kernel(1), worker_passes(SlamEngine) as passes5d:
+        eng = SlamEngine(rr_config, loop_laser, synchronous_backend=False)
+        waits = []
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(len(loop_log)):
+            eng.process(loop_log.ranges[i], loop_log.odom[i], float(loop_log.times[i]))
+            t_w = time.perf_counter()
+            while not eng._backend_queue.empty():
+                assert time.perf_counter() - t_w < 120, "the worker did not drain"
+                time.sleep(0.005)
+            waits.append(time.perf_counter() - t_w)
+        eng.finish()
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t
+        counts, shapes5d = read_counts(), read_shapes()
+    back, diag = eng.backend, eng.diag
+    batches = back.num_chain_dispatches + diag.fused_steps
+    report5d = {
+        "scans_fed": diag.scans_in, "kept": len(eng.store), "links": back.num_links,
+        "loop_closures": back.num_loop_closures, "spa_solves": back.num_solves,
+        "chain_dispatches": back.num_chain_dispatches, "fused_steps": diag.fused_steps,
+        "fused_hits": back.num_fused_hits, "fused_misses": back.num_fused_misses,
+        "async_bar": back.num_fused_misses + back.num_solves + 4,
+        "replay_s": replay_s, "replay_ms_per_scan_fed": replay_s / diag.scans_in * 1e3,
+        "drain_wait_s": sum(waits), "drain_wait_max_s": max(waits),
+        "solve_and_correct_s": back.solve_time_s, **passes_said(passes5d),
+        "launches": counts, "launches_by_shape": shapes_said(shapes5d),
+        "launches_in_chain_matches": {
+            "correlation": on_maps_of(shapes5d, 1, eng.bspec.fine_spec),
+            "bad_ray_count": batches}}
+    emit({"phase": LEG5D, "corr_kernel": 1, **report5d})
+    assert not eng.synchronous_backend and np.isfinite(eng.trajectory_array()).all()
+    assert counts["correlation_scores_v2"] == 0, counts
+    assert min(counts["correlation_scores"], counts["ray_mark_image"],
+               counts["bad_ray_count"]) > 0, counts
+    assert report5d["launches_in_chain_matches"]["correlation"] == 3 * batches, report5d
+    assert counts["bad_ray_count"] == diag.scans_in - diag.scans_dropped_move + batches, counts
+    assert report5d["fused_steps"] > 0 and report5d["fused_hits"] > 0, report5d
+    assert report5d["loop_closures"] >= 1, "the drained run closed no loop"
+    assert report5d["chain_dispatches"] <= report5d["async_bar"], \
+        (report5d["chain_dispatches"], report5d["fused_misses"], report5d["spa_solves"])
+    del eng, back, diag
+    account(LEG5D, shapes5d, ctx_rr1)
 
     # ---- phase 11: checkpoint and resume against leg 3's straight run ----
     half = len(loop_log) // 2

@@ -57,11 +57,11 @@ def main():
     n = args.nodes
     data = make_synthetic_loop_graph(n, device=mesh.device)
     (p1, c1, i1), t1 = timed(lambda: spa.solve_pose_graph(data, args.max_iters, args.cg_iters))
-    say(f"single: cost {float(c1):.4f} in {i1} iters, {t1 * 1e3:.0f} ms")
+    say(f"single: cost {float(c1):.4f} in {int(i1)} iters, {t1 * 1e3:.0f} ms")
     before = mesh.all_reduces
     (p2, c2, i2), t2 = timed(lambda: solve_pose_graph_sharded(
         data, mesh, axis="graph", max_iters=args.max_iters, cg_iters=args.cg_iters))
-    say(f"{mesh.size}-rank sharded: cost {float(c2):.4f} in {i2} iters, "
+    say(f"{mesh.size}-rank sharded: cost {float(c2):.4f} in {int(i2)} iters, "
         f"{t2 * 1e3:.0f} ms, {mesh.all_reduces - before} all-reduces")
 
     d = (p1 - p2).abs()

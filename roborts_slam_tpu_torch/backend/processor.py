@@ -535,6 +535,7 @@ class Backend:
         data = self.graph.as_solver_data(self.store.poses_array(),
                                          self.store.device)
         poses, _cost, _iters = solve_pose_graph(data)
+        # the solve stays on the device until here: its one host read
         corrected = poses.cpu().numpy().astype(np.float64)[: self.graph.num_vertices]
         if self.on_corrections is not None:
             self.on_corrections(corrected)

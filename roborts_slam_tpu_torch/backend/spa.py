@@ -12,9 +12,16 @@ matrix-free: H·x is evaluated edge-wise with segment sums (``index_add_``)
 and never materialized, preconditioned by the block-Jacobi 3x3 diagonal.
 This is plain tensor algebra (it was never a hand-written kernel).
 
-The JAX package's ``lax.while_loop``s are Python loops here, with the same
-iteration and stopping rules; each loop condition reads one scalar from the
-device — a host synchronisation, counted in ``host_syncs``.
+The JAX package's ``lax.while_loop``s become fixed loops of their largest
+iteration count (``max_iters`` LM iterations of ``cg_iters`` CG steps) that
+carry their stopping flags on the device, as ``ops/gauss_newton.py`` does:
+a step taken after the loop's test has failed is computed and discarded
+(``torch.where``), so the result is the while loop's exit state bit for bit
+and no value is read on the host inside the solve. The edge Jacobians are a
+function of the poses alone and are computed once per LM iteration. On the
+card an unsharded solve runs its first LM iteration eagerly on a side
+stream, captures the next one in a CUDA graph and replays it for the rest:
+the host issues one replay per LM iteration instead of every operation.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 
 from ..utils.geometry import normalize_angle
 
-host_syncs = 0     # device->host scalar reads made by loop conditions so far
+host_syncs = 0     # device->host scalar reads made by the dense solve so far
 
 
 class PoseGraphData(NamedTuple):
@@ -40,11 +47,13 @@ class PoseGraphData(NamedTuple):
     edge_mask: torch.Tensor   # (E,) bool
 
 
-def _read(flag) -> bool:
-    """One scalar device->host read (a synchronisation on the card)."""
+def _read(x) -> float:
+    """One scalar device->host read (a synchronisation on the card), counted
+    in ``host_syncs``: the dense solve's accept/reject tests. ``lm_solve``
+    makes none."""
     global host_syncs
     host_syncs += 1
-    return bool(flag)
+    return float(x)
 
 
 def _endpoints(poses, data: PoseGraphData):
@@ -91,11 +100,28 @@ def graph_cost(poses, data: PoseGraphData):
     return 0.5 * torch.sum(w * torch.einsum("ei,eij,ej->e", r, data.edge_info, r))
 
 
-def _gauge_project(x, node_mask):
-    """Zero the update of node 0 (gauge fix) and of padding nodes."""
-    m = node_mask.to(x.dtype)[:, None].clone()
+def _gauge_mask(data: PoseGraphData):
+    """(N, 1) mask that zeroes the update of node 0 (gauge fix) and of
+    padding nodes."""
+    m = data.node_mask.to(data.poses.dtype)[:, None].clone()
     m[0] = 0.0
-    return x * m
+    return m
+
+
+class _Linearization(NamedTuple):
+    """What one LM iteration's products share: the edge Jacobians at its
+    poses, the masked information matrices and the gauge mask."""
+
+    ja: torch.Tensor      # (E, 3, 3) d r / d pose_a
+    jb: torch.Tensor      # (E, 3, 3) d r / d pose_b
+    info: torch.Tensor    # (E, 3, 3) information, zero on padding edges
+    gauge: torch.Tensor   # (N, 1) from _gauge_mask
+
+
+def _linearize(poses, data: PoseGraphData, gauge) -> _Linearization:
+    ja, jb = edge_jacobians(poses, data)
+    info = data.edge_info * data.edge_mask.to(poses.dtype)[:, None, None]
+    return _Linearization(ja, jb, info, gauge)
 
 
 def _segment_sum(like, data: PoseGraphData, ga, gb):
@@ -109,60 +135,55 @@ def _reduced(x, reduce_fn):
     return x if reduce_fn is None else reduce_fn(x)
 
 
-def _hvp(poses, data: PoseGraphData, x, reduce_fn=None):
+def _hvp(lin: _Linearization, data: PoseGraphData, x, reduce_fn=None):
     """Gauss-Newton Hessian-vector product, matrix-free:
     H x = Σ_e J_e^T I_e J_e x, accumulated by segment-sum over edges (and
     over the edge shards by ``reduce_fn``)."""
-    ja, jb = edge_jacobians(poses, data)
-    w = data.edge_mask.to(poses.dtype)[:, None, None]
     xa = x[data.edge_ij[:, 0]]
     xb = x[data.edge_ij[:, 1]]
-    jx = (torch.einsum("eij,ej->ei", ja, xa) + torch.einsum("eij,ej->ei", jb, xb))
-    ijx = torch.einsum("eij,ej->ei", data.edge_info * w, jx)
-    ga = torch.einsum("eji,ej->ei", ja, ijx)
-    gb = torch.einsum("eji,ej->ei", jb, ijx)
-    return _gauge_project(_reduced(_segment_sum(x, data, ga, gb), reduce_fn),
-                          data.node_mask)
+    jx = (torch.einsum("eij,ej->ei", lin.ja, xa) + torch.einsum("eij,ej->ei", lin.jb, xb))
+    ijx = torch.einsum("eij,ej->ei", lin.info, jx)
+    ga = torch.einsum("eji,ej->ei", lin.ja, ijx)
+    gb = torch.einsum("eji,ej->ei", lin.jb, ijx)
+    return _reduced(_segment_sum(x, data, ga, gb), reduce_fn) * lin.gauge
 
 
-def _gradient(poses, data: PoseGraphData, reduce_fn=None):
+def _gradient(lin: _Linearization, poses, data: PoseGraphData, reduce_fn=None):
     r = edge_residuals(poses, data)
-    ja, jb = edge_jacobians(poses, data)
     w = data.edge_mask.to(poses.dtype)[:, None]
     ir = torch.einsum("eij,ej->ei", data.edge_info, r) * w
-    ga = torch.einsum("eji,ej->ei", ja, ir)
-    gb = torch.einsum("eji,ej->ei", jb, ir)
-    return _gauge_project(_reduced(_segment_sum(poses, data, ga, gb), reduce_fn),
-                          data.node_mask)
+    ga = torch.einsum("eji,ej->ei", lin.ja, ir)
+    gb = torch.einsum("eji,ej->ei", lin.jb, ir)
+    return _reduced(_segment_sum(poses, data, ga, gb), reduce_fn) * lin.gauge
 
 
-def _block_diag(poses, data: PoseGraphData, damping, reduce_fn=None):
+def _block_diag(lin: _Linearization, data: PoseGraphData, damping, reduce_fn=None):
     """(N,3,3) block-diagonal of H (+ LM damping) for preconditioning."""
-    ja, jb = edge_jacobians(poses, data)
-    w = data.edge_mask.to(poses.dtype)[:, None, None]
-    info = data.edge_info * w
-    ba = torch.einsum("eki,ekl,elj->eij", ja, info, ja)
-    bb = torch.einsum("eki,ekl,elj->eij", jb, info, jb)
-    blocks = torch.zeros((poses.shape[0], 3, 3), dtype=poses.dtype,
-                         device=poses.device)
+    ba = torch.einsum("eki,ekl,elj->eij", lin.ja, lin.info, lin.ja)
+    bb = torch.einsum("eki,ekl,elj->eij", lin.jb, lin.info, lin.jb)
+    n = lin.gauge.shape[0]
+    blocks = lin.info.new_zeros((n, 3, 3))
     blocks = _reduced(_segment_sum(blocks, data, ba, bb), reduce_fn)
-    eye = torch.eye(3, dtype=poses.dtype, device=poses.device)
+    eye = torch.eye(3, dtype=blocks.dtype, device=blocks.device)
     return blocks + (damping + 1e-6) * eye[None]
 
 
-def _pcg(poses, data: PoseGraphData, b, damping, iters: int, tol: float,
-         reduce_fn=None):
-    """Preconditioned CG on (H + λI) x = b with block-Jacobi preconditioner.
-    One host read per iteration (the residual test). Every vector here is
-    node-sized and, under edge sharding, the same on every rank: the tested
-    residual comes from reduced products only."""
-    pinv = torch.linalg.inv(_block_diag(poses, data, damping, reduce_fn))
+def _pcg(lin: _Linearization, data: PoseGraphData, b, damping, iters: int,
+         tol: float, reduce_fn=None):
+    """Preconditioned CG on (H + λI) x = b with block-Jacobi preconditioner:
+    ``iters`` steps, each taken only while JAX's loop test — the residual
+    above ``tol`` of ``b`` — holds before it (``active``, on the device).
+    Every vector here is node-sized and, under edge sharding, the same on
+    every rank: the test reads reduced products only. The block inverse is
+    ``inv_ex``: the LU inverse of ``inv`` without its synchronising error
+    check (``jnp.linalg.inv`` never raises either)."""
+    pinv, _ = torch.linalg.inv_ex(_block_diag(lin, data, damping, reduce_fn))
 
     def precond(v):
-        return _gauge_project(torch.einsum("nij,nj->ni", pinv, v), data.node_mask)
+        return torch.einsum("nij,nj->ni", pinv, v) * lin.gauge
 
     def matvec(v):
-        return _hvp(poses, data, v, reduce_fn) + damping * _gauge_project(v, data.node_mask)
+        return _hvp(lin, data, v, reduce_fn) + damping * (v * lin.gauge)
 
     x = torch.zeros_like(b)
     r = b
@@ -171,55 +192,127 @@ def _pcg(poses, data: PoseGraphData, b, damping, iters: int, tol: float,
     rz = torch.sum(r * z)
     bnorm = torch.clamp(torch.sqrt(torch.sum(b * b)), min=1e-12)
 
-    i = 0
-    while i < iters and _read(torch.sqrt(torch.sum(r * r)) > tol * bnorm):
+    def going(r):
+        return torch.sqrt(torch.sum(r * r)) > tol * bnorm
+
+    active = going(r)
+    for i in range(iters):
+        if i:
+            active = active & going(r)
         hp = matvec(p)
         alpha = rz / torch.clamp(torch.sum(p * hp), min=1e-20)
-        x = x + alpha * p
-        r = r - alpha * hp
-        z = precond(r)
-        rz_new = torch.sum(r * z)
+        x = torch.where(active, x + alpha * p, x)
+        r_new = r - alpha * hp
+        z = precond(r_new)
+        rz_new = torch.sum(r_new * z)
         beta = rz_new / torch.clamp(rz, min=1e-20)
-        p = z + beta * p
-        rz = rz_new
-        i += 1
+        p = torch.where(active, z + beta * p, p)
+        r = torch.where(active, r_new, r)
+        rz = torch.where(active, rz_new, rz)
     return x
 
 
+class _LMState(NamedTuple):
+    """The LM loop's carry, as JAX's ``while_loop`` state: all on the
+    device."""
+
+    poses: torch.Tensor   # (N, 3)
+    lam: torch.Tensor     # () damping
+    cost: torch.Tensor    # () cost at ``poses``
+    it: torch.Tensor      # () int32 iterations taken
+    done: torch.Tensor    # () bool converged
+
+
+def _lm_iteration(state: _LMState, data: PoseGraphData, gauge, cg_iters: int,
+                  reduce_fn, scalar_reduce_fn) -> _LMState:
+    """One LM iteration with Ceres-style accept/reject and adaptive
+    damping; it changes nothing once ``done`` (JAX's loop has ended)."""
+    poses, lam, cost, it, done = state
+    lin = _linearize(poses, data, gauge)
+    g = _gradient(lin, poses, data, reduce_fn)
+    step = _pcg(lin, data, -g, lam, cg_iters, 1e-6, reduce_fn)
+    new_poses = poses + step
+    new_poses = torch.cat(
+        [new_poses[:, :2], normalize_angle(new_poses[:, 2:3])], dim=1)
+    new_cost = _reduced(graph_cost(new_poses, data), scalar_reduce_fn)
+    active = ~done
+    improved = new_cost < cost
+    taken = active & improved
+    gnorm = torch.sqrt(torch.sum(g * g))
+    converged = improved & ((cost - new_cost) < 1e-7 * (cost + 1e-12))
+    converged = converged | (gnorm < 1e-10)
+    return _LMState(
+        poses=torch.where(taken, new_poses, poses),
+        lam=torch.where(active, torch.where(
+            improved, torch.clamp(lam * 0.33, min=1e-8), lam * 10.0), lam),
+        cost=torch.where(taken, new_cost, cost),
+        it=it + active,
+        done=done | converged)
+
+
+def _replayed(step, state: _LMState, n: int) -> _LMState:
+    """``n`` applications of ``step`` on the card: the first eagerly on a
+    side stream (the warm-up that a capture needs, and a real iteration),
+    the second captured there in a CUDA graph that writes its result back
+    into its input, replayed ``n - 1`` times on the caller's stream. The
+    capture is thread-local: the engine's front end launches and reads from
+    another thread meanwhile (a draw from the card's random generator there
+    would be refused; the engine makes none). A capture that fails raises;
+    nothing falls back to eager launches."""
+    dev = state.poses.device
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    if side == main:                  # the caller's own stream from the pool
+        side = torch.cuda.Stream(dev)
+    static = _LMState(*(torch.empty_like(t) for t in state))
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        for s, t in zip(static, step(state)):
+            s.copy_(t)
+        if n > 1:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                for s, t in zip(static, step(static)):
+                    s.copy_(t)
+            finally:
+                graph.capture_end()
+    main.wait_stream(side)
+    for _ in range(n - 1):
+        graph.replay()
+    return static
+
+
 def lm_solve(data: PoseGraphData, max_iters: int = 50, cg_iters: int = 100,
-             reduce_fn=None, scalar_reduce_fn=None):
+             reduce_fn=None, scalar_reduce_fn=None, replay: bool = True):
     """Levenberg-Marquardt loop with Ceres-style accept/reject and adaptive
-    damping. Returns (poses, final_cost, iterations). The accept/reject
-    selections stay on the device (``torch.where``); one host read per outer
-    iteration tests convergence. ``reduce_fn`` / ``scalar_reduce_fn`` sum the
-    node-sized normal-equation pieces and the cost over edge shards
-    (parallel/dist_spa.py); with both ``None`` nothing else changes."""
+    damping, JAX's ``while_loop`` as a fixed loop of ``max_iters`` masked
+    iterations. Returns (poses, final_cost, iterations) as device tensors;
+    nothing is read on the host. ``reduce_fn`` / ``scalar_reduce_fn`` sum
+    the node-sized normal-equation pieces and the cost over edge shards
+    (parallel/dist_spa.py); with both ``None`` nothing else changes. An
+    unsharded solve on the card replays its iterations from a CUDA graph
+    (``_replayed``) unless ``replay`` is False (the eager yardstick); every
+    other solve launches them eagerly."""
     poses = data.poses
-    lam = torch.as_tensor(1e-4, dtype=poses.dtype, device=poses.device)
+    f32 = dict(dtype=poses.dtype, device=poses.device)
+    state = _LMState(
+        poses=poses, lam=torch.full((), 1e-4, **f32),
+        cost=_reduced(graph_cost(poses, data), scalar_reduce_fn),
+        it=torch.zeros((), dtype=torch.int32, device=poses.device),
+        done=torch.zeros((), dtype=torch.bool, device=poses.device))
+    gauge = _gauge_mask(data)
 
-    def cost_fn(p):
-        return _reduced(graph_cost(p, data), scalar_reduce_fn)
+    def step(s):
+        return _lm_iteration(s, data, gauge, cg_iters, reduce_fn, scalar_reduce_fn)
 
-    cost = cost_fn(poses)
-    it = 0
-    done = False
-    while it < max_iters and not done:
-        g = _gradient(poses, data, reduce_fn)
-        step = _pcg(poses, data, -g, lam, cg_iters, 1e-6, reduce_fn)
-        new_poses = poses + step
-        new_poses = torch.cat(
-            [new_poses[:, :2], normalize_angle(new_poses[:, 2:3])], dim=1)
-        new_cost = cost_fn(new_poses)
-        improved = new_cost < cost
-        poses = torch.where(improved, new_poses, poses)
-        lam = torch.where(improved, torch.clamp(lam * 0.33, min=1e-8), lam * 10.0)
-        gnorm = torch.sqrt(torch.sum(g * g))
-        converged = improved & ((cost - new_cost) < 1e-7 * (cost + 1e-12))
-        converged = converged | (gnorm < 1e-10)
-        cost = torch.where(improved, new_cost, cost)
-        it += 1
-        done = _read(converged)
-    return poses, cost, it
+    if (replay and poses.is_cuda and max_iters > 0 and reduce_fn is None
+            and scalar_reduce_fn is None):
+        state = _replayed(step, state, max_iters)
+    else:
+        for _ in range(max_iters):
+            state = step(state)
+    return state.poses, state.cost, state.it
 
 
 def solve_pose_graph(data: PoseGraphData, max_iters: int = 50,
@@ -233,9 +326,8 @@ def solve_pose_graph_dense(data: PoseGraphData, max_iters: int = 50):
     (``torch.linalg.solve``): the validation path, and the fastest option for
     small graphs. Node 0 and the padding nodes are pinned by unit rows and
     columns. The accept/reject and stopping tests read the new cost on the
-    host once per iteration (counted in ``host_syncs``), as the JAX package's
-    Python loop does. Returns (poses, final_cost)."""
-    global host_syncs
+    host once per iteration (``_read``), as the JAX package's Python loop
+    does. Returns (poses, final_cost)."""
     n = data.poses.shape[0]
     dev, dt = data.poses.device, data.poses.dtype
     ia, ib = data.edge_ij[:, 0], data.edge_ij[:, 1]
@@ -276,8 +368,7 @@ def solve_pose_graph_dense(data: PoseGraphData, max_iters: int = 50):
     poses = data.poses
     lam = 1e-4
     cost = graph_cost(poses, data)
-    host_syncs += 1
-    cost_f = float(cost)
+    cost_f = _read(cost)
     for _ in range(max_iters):
         hf, gf = build_h_g(poses, lam)
         step = torch.linalg.solve(hf, -gf).reshape(-1, 3)
@@ -285,8 +376,7 @@ def solve_pose_graph_dense(data: PoseGraphData, max_iters: int = 50):
         new_poses = torch.cat(
             [new_poses[:, :2], normalize_angle(new_poses[:, 2:3])], dim=1)
         new_cost = graph_cost(new_poses, data)
-        host_syncs += 1
-        new_f = float(new_cost)
+        new_f = _read(new_cost)
         if new_f < cost_f:
             prev_f = cost_f
             poses, cost, cost_f = new_poses, new_cost, new_f

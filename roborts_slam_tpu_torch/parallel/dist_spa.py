@@ -7,11 +7,13 @@ axis; every rank runs the same LM/PCG iteration on its block, and the
 normal-equation pieces — gradient, block-Jacobi diagonal, each CG
 Hessian-vector product — and the cost are summed over the axis's group with
 ``all_reduce``. Node state (poses, CG vectors) is replicated, so after every
-sum all ranks hold the same bits and advance in lockstep: each rank's loop
-tests (one host read per CG step and per LM iteration) read values computed
-from summed tensors only, so no rank takes another branch and leaves the
-others waiting in a collective. Where the JAX package runs one SPMD program
-(``shard_map`` with ``psum``), each rank here is its own process.
+sum all ranks hold the same bits and advance in lockstep. The loops are the
+single solve's fixed masked loops, launched eagerly (no CUDA graph): every
+rank runs all ``max_iters`` LM iterations of ``cg_iters`` CG steps and so
+makes the same all-reduces by construction, and its stopping flags, computed
+from summed tensors only, stay on the device; nothing is read on the host.
+Where the JAX package runs one SPMD program (``shard_map`` with ``psum``),
+each rank here is its own process.
 
 The math is backend/spa.py's ``lm_solve``; the sums are taken in another
 order than the single solve's, so the two agree to float tolerance.

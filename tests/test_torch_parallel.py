@@ -206,9 +206,10 @@ def _check_sharded(ranks, refs, n):
         assert abs(float(first["cost"]) - float(ref_c)) <= COST_RTOL * abs(float(ref_c)) + 1e-6
         np.testing.assert_allclose(first["poses"].numpy()[:n], np.asarray(ref_p)[:n],
                                    atol=POSE_ATOL)
-    # one all-reduce per node-sized sum and per cost
+    # one all-reduce per node-sized sum and per cost; no host read inside
+    # the solve (its loops are masked on the device)
     assert first["all_reduces"] > 2 * first["iters"]
-    assert first["host_syncs"] >= first["iters"]
+    assert first["host_syncs"] == 0
 
 
 @pytest.fixture(scope="module")
