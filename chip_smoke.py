@@ -78,6 +78,19 @@ inputs (correlation scores within 2.4e-7, carve cells and ray-check
 counts equal); and the rounding helpers of ``ops/xla_rounding.py`` give
 the same bits on the card as on the CPU.
 
+``step_graph`` (after it) holds the per-scan step replayed from CUDA graphs
+(the engine's default on the card: one graph per step program and chain
+bucket, ``step_graph.py``) against the same step launched eagerly
+(``step_graph=False``) on legs 1, 3 and 4: a graph engine's state is
+carried into a fresh eager engine before each compared scan and the two
+steps must agree bit for bit (summary, maps, scalars, store rows); per leg
+the captures and replays by program, one host read per steady step, no
+implicit synchronisation inside a replay, and under torch.profiler the
+host's launch calls per scan and the device's idle share of both paths.
+Leg 3's ms per fed scan (blocking and pipelined, 300 scans) and the
+headline's ms per match, graph and eager in turns, each graph run equal to
+its eager run bit for bit.
+
 Three phases run ``parallel/`` on leg 3's state: ``parallel_chain_match``
 (eight of its chains against its newest scan through the sharded gather
 matcher on a one-rank NCCL group and over two gloo ranks sharing the card,
@@ -144,6 +157,7 @@ POS_TOL, ANG_TOL = 2e-3, 2e-3  # trajectory agreement bar (m, rad)
 ATE_BAR_M = 0.3           # leg 3's bar on the ATE against the simulated truth
 STREAM_DT = 0.01          # leg 5 samples the pose stream at 100 Hz of log time
 SNAPSHOT_EVERY = 50       # leg 5's map snapshot hook: every 50 kept scans
+STEP_GRAPH_LEG3_WARM = 600  # leg 3's scans before step_graph compares (fused steps from 604)
 # offsets of the start poses of a batch of matches (a chain batch holds at most 8)
 NUDGE = [[0, 0, 0], [0.02, 0, 0], [0, 0.02, 0], [0, 0, 0.01],
          [-0.02, 0, 0], [0, -0.02, 0], [0, 0, -0.01], [0.02, 0.02, 0]]
@@ -811,6 +825,228 @@ def lockstep_phase(SlamEngine, dev, legs) -> dict:
     return out
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profile_steps(make, scans, out_dir, tag):
+    """``scans`` (ranges, odometry, stamp) through an engine from
+    ``make()`` traced with torch.profiler: the host's launch calls per scan
+    by CUDA runtime call (kernels, graph launches, copies, fills) and the
+    device's busy and idle share against the unprofiled wall of the same
+    scans through a second engine from ``make()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(scans)
+    eng = make()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for r, o, t in scans:
+            eng.process(r, o, t)
+        torch.cuda.synchronize()
+    calls = {k: 0 for k in LAUNCH_CALLS}
+    for e in prof.key_averages():
+        if e.key in calls:
+            calls[e.key] += e.count
+    dt = device_time(prof, out_dir, tag)
+    eng = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r, o, t in scans:
+        eng.process(r, o, t)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    return {"scans": n, "host_launch_calls_per_scan": {k: v / n for k, v in calls.items() if v},
+            "host_launch_calls_per_scan_total": sum(calls.values()) / n,
+            "device_kernels_per_scan": dt["launches"] / n,
+            "device_busy_ms_per_scan": 1e3 * dt["busy_s"] / n,
+            "unprofiled_ms_per_scan": 1e3 * plain_wall / n,
+            "device_idle_share_of_unprofiled_wall": 1.0 - dt["busy_s"] / plain_wall,
+            "device_union_idle_share_of_unprofiled_wall": 1.0 - dt["union_s"] / plain_wall}
+
+
+def step_graph_phase(SlamEngine, dev, legs, headline_w, out_dir) -> dict:
+    """``step_graph``: the per-scan step replayed from CUDA graphs (the
+    engine's default on the card) against the same step launched eagerly
+    (``step_graph=False``). Per leg (tag, config, laser, world size,
+    correlation kernel, the leg's scans as (ranges, odometry, stamp), warm-up
+    scans, compared scans): a graph engine takes the warm-up scans, then
+    before each compared scan its whole state is carried into a fresh eager
+    engine on the card (``bench/lockstep.py``) and both take the scan; the
+    summary, the front-end state (maps and scalars) and the store's rows,
+    device and host, must be equal bit for bit. Counted on the graph
+    engine: captures and replays by program, the host reads of each step
+    (``set_sync_debug_mode``: one, its summary) and the implicit
+    synchronisations inside each replay (none). Then 20 scans of each
+    engine under torch.profiler: the host's launch calls per scan and the
+    device's idle share. Leg 3's ms per fed scan (300 scans), the pipelined
+    engine's and the headline's ms per match, graph and eager in turns;
+    the pipelined and the headline's graph runs against their eager runs,
+    bit for bit."""
+    from roborts_slam_tpu_torch.bench import lockstep
+    from roborts_slam_tpu_torch.bench.headline import match_chain
+    from roborts_slam_tpu_torch.bench.timing import k_slope_dynamic
+    from roborts_slam_tpu_torch.step_graph import StepGraph
+
+    out, t_all = {"legs": {}}, time.perf_counter()
+    stats = {"step_reads": [], "replay_syncs": []}
+
+    def counted_step(fn):
+        def inner(self, *a, **kw):
+            res, where = syncs_of(fn, self, *a, **kw)
+            stats["step_reads"].append((self, where))
+            return res
+        return inner
+
+    def counted_replay(fn):
+        def inner(self):
+            res, where = syncs_of(fn, self)
+            if self.last == "replay":
+                stats["replay_syncs"].append(where)
+            return res
+        return inner
+
+    def equal_states(g, e):
+        a, b = lockstep.state_arrays(g.state), lockstep.state_arrays(e.state)
+        n = len(g.store)
+        if n != len(e.store) or not np.array_equal(g.store.poses_array(),
+                                                   e.store.poses_array()):
+            return False
+        rows = [(x[:n].cpu().numpy(), y[:n].cpu().numpy()) for x, y in
+                zip(g.store.device_arrays(), e.store.device_arrays())] if n else []
+        return (a.keys() == b.keys()
+                and all(a[k].shape == b[k].shape and np.array_equal(a[k], b[k]) for k in a)
+                and all(np.array_equal(x, y) for x, y in rows))
+
+    for tag, cfg, scan_laser, world_size, version, feed, warm, compared in legs:
+        t0 = time.perf_counter()
+        rec = {"corr_kernel": version, "warm_up_scans": warm, "compared_scans": compared}
+        with corr_kernel(version):
+            g = SlamEngine(cfg, scan_laser, world_size=world_size)
+            assert g.diag.step_graph == "graph", g.diag.step_graph
+            for r, o, t in feed[:warm]:
+                g.process(r, o, t)
+            differ, replayed, steady_reads, reads_where = [], 0, [], Counter()
+            stats["replay_syncs"].clear()
+            with patched(SlamEngine, "_blocking_step", counted_step), \
+                    patched(StepGraph, "__call__", counted_replay):
+                for k, (r, o, t) in enumerate(feed[warm:warm + compared]):
+                    z = lockstep.engine_arrays(g)
+                    e = lockstep.carry(z, dev, step_graph=False)
+                    before = (g.diag.graph_replays, g.diag.graph_captures, g.diag.recenters,
+                              g.diag.pub_clip_rebuilds, g.backend.num_solves, g.fspec.pub_spec)
+                    stats["step_reads"].clear()
+                    kg, ke = g.process(r, o, t), e.process(r, o, t)
+                    step_reads = [w for eng, w in stats["step_reads"] if eng is g]
+                    was_replay = g.diag.graph_replays > before[0]
+                    replayed += was_replay
+                    # a replay with no capture, recenter, growth or solve around it
+                    steady = (was_replay and before[1:] == (
+                        g.diag.graph_captures, g.diag.recenters, g.diag.pub_clip_rebuilds,
+                        g.backend.num_solves, g.fspec.pub_spec))
+                    if step_reads and steady:
+                        steady_reads.append(len(step_reads[0]))
+                        reads_where.update(step_reads[0])
+                    sg, se = g.last_summary, e.last_summary
+                    same = (kg == ke and (sg is None) == (se is None)
+                            and (sg is None or np.array_equal(sg, se)) and equal_states(g, e))
+                    if not same:
+                        differ.append(warm + k)
+                    del e
+            torch.cuda.synchronize()
+            rec.update({
+                "steps_differing": differ, "steps_replayed": replayed,
+                "captures_by_key": dict(g.diag.captures_by_key),
+                "replays_by_key": dict(g.diag.replays_by_key),
+                "graph_captures": g.diag.graph_captures, "eager_steps": g.diag.eager_steps,
+                "host_reads_per_steady_step": (statistics.mean(steady_reads)
+                                               if steady_reads else None),
+                "steady_steps_counted": len(steady_reads),
+                "host_reads_where": dict(reads_where),
+                "implicit_syncs_in_replays": sum(len(w) for w in stats["replay_syncs"]),
+                "replays_checked": len(stats["replay_syncs"]),
+                "bar": "bit for bit (summary, maps, scalars, store rows)"})
+            assert not differ, (tag, differ)
+            assert replayed >= compared // 2, (tag, replayed)
+            assert steady_reads and set(steady_reads) == {1}, (tag, steady_reads, reads_where)
+            assert rec["implicit_syncs_in_replays"] == 0 and rec["replays_checked"] > 0, rec
+            del g
+            # launches on the host and the device's idle share, 20 steady scans
+            for graph in (True, False):
+                def make(graph=graph):
+                    eng = SlamEngine(cfg, scan_laser, world_size=world_size, step_graph=graph)
+                    for r, o, t in feed[:warm]:
+                        eng.process(r, o, t)
+                    return eng
+                rec["profile_graph" if graph else "profile_eager"] = profile_steps(
+                    make, feed[warm:warm + 20], out_dir,
+                    f"step_graph_{tag}_{'graph' if graph else 'eager'}")
+        rec["seconds"] = time.perf_counter() - t0
+        out["legs"][tag] = rec
+        torch.cuda.empty_cache()
+
+    # leg 3's ms per fed scan, blocking and pipelined, graph and eager in turns
+    tag, cfg, scan_laser, world_size, version, feed, _, _ = legs[1]
+    turns = {}
+    with corr_kernel(version):
+        for mode in ("blocking", "pipelined"):
+            runs = {True: [], False: []}
+            trajs = {}
+            for graph in (True, False, False, True):
+                eng = SlamEngine(cfg, scan_laser, world_size=world_size, step_graph=graph,
+                                 pipelined_fetch=mode == "pipelined")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for r, o, t in feed[:300]:
+                    eng.process(r, o, t)
+                eng.finish()
+                torch.cuda.synchronize()
+                runs[graph].append(1e3 * (time.perf_counter() - t0) / 300)
+                trajs[graph] = (eng.trajectory_array(), eng.get_pub_map(),
+                                lockstep.state_arrays(eng.state))
+                del eng
+            (ta, ma, sa), (tb, mb, sb) = trajs[True], trajs[False]
+            same = (np.array_equal(ta, tb) and np.array_equal(ma, mb)
+                    and all(np.array_equal(sa[k], sb[k]) for k in sa))
+            turns[mode] = {"graph_ms_per_scan_fed": runs[True],
+                           "eager_ms_per_scan_fed": runs[False],
+                           "graph_equals_eager_bit_for_bit": same}
+            assert same, mode
+    out["leg3_300_scans_in_turns"] = turns
+    # the headline: the chained match replayed against launched, in turns
+    ks, hl = (16, 64), {True: [], False: []}
+    sums = {}
+    with corr_kernel(1):
+        for graph in (True, False, False, True):
+            f = match_chain(headline_w, graph=graph)
+            sec, _ = k_slope_dynamic(f, k_points=ks, reps=3)
+            hl[graph].append(1e3 * sec)
+            sums[graph] = f(0, 8).cpu()
+        for graph in (True, False):
+            hl[f"profile_{'graph' if graph else 'eager'}"] = profile_matches(
+                match_chain(headline_w, graph=graph), 20, out_dir,
+                f"step_graph_headline_{'graph' if graph else 'eager'}")
+    out["headline"] = {"k_points": list(ks), "graph_ms_per_match": hl[True],
+                       "eager_ms_per_match": hl[False],
+                       "graph_equals_eager_bit_for_bit": bool(torch.equal(sums[True],
+                                                                          sums[False])),
+                       "profile_graph": hl["profile_graph"],
+                       "profile_eager": hl["profile_eager"]}
+    assert out["headline"]["graph_equals_eager_bit_for_bit"], sums
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def step_path(diag) -> dict:
+    """What ``engine.diag`` says of the per-scan steps: the path ("graph"
+    or why eager), CUDA graph captures and replays by program, eager
+    steps."""
+    return {"step_graph": diag.step_graph, "graph_captures": diag.graph_captures,
+            "graph_replays": diag.graph_replays, "eager_steps": diag.eager_steps,
+            "captures_by_key": dict(diag.captures_by_key),
+            "replays_by_key": dict(diag.replays_by_key)}
+
+
 def pose_diff(a, b):
     """max |Δ| of two (N, 3) pose tensors, angles wrapped (±π agree)."""
     d = (a - b).abs()
@@ -825,11 +1061,12 @@ def syncs_of(fn, *a, **kw):
     the mode is a prototype, which torch gives once a process, is none)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
+        before = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn(*a, **kw)
         finally:
-            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.set_sync_debug_mode(before)
     return out, [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
                  if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
 
@@ -1777,6 +2014,7 @@ def main() -> int:
             "fused_steps": eng.diag.fused_steps,
             "fused_hits": eng.backend.num_fused_hits,
             "fused_misses": eng.backend.num_fused_misses,
+            **step_path(eng.diag),
             "launches": counts, "launches_by_shape": shapes_said(shapes),
             "launches_in_chain_matches": {
                 "correlation_scores": chain_corr, "bad_ray_count": batches},
@@ -1906,7 +2144,10 @@ def main() -> int:
         time went by the engine's own diagnostics) and the counts by shape.
         ``setup(engine)`` runs before the replay starts (the hooks)."""
         seen = {"engine": None}
-        opt_costs = []
+        # the front end's optimizer costs, written on the device: the write is
+        # captured with a step's graph, so every replay records its cost too
+        opt_costs = torch.zeros((4096,), dtype=torch.float32, device=dev)
+        opt_count = torch.zeros((1,), dtype=torch.int64, device=dev)
 
         def engine_seen(fn):
             def inner(self, source, *a, **kw):
@@ -1925,7 +2166,8 @@ def main() -> int:
             def inner(*a, **kw):
                 res = fn(*a, **kw)
                 if res.cost.dim() == 0:          # the front end's single match
-                    opt_costs.append(res.cost)
+                    opt_costs.index_copy_(0, opt_count, res.cost.reshape(1))
+                    opt_count.add_(1)
                 return res
             return inner
 
@@ -1971,6 +2213,7 @@ def main() -> int:
             "host_reads_per_kept_scan": (front_steps + back.num_chain_dispatches)
             / len(eng.store),
             "recenters": diag.recenters, "dedistorted_scans": diag.scans_dedistorted,
+            **step_path(diag),
             "ate_rmse_m": ate_rmse(est, gt), "cli_said": last,
             "fine_map": [eng.fspec.fine_spec.height, eng.fspec.fine_spec.width],
             "chain_map": [eng.bspec.fine_spec.height, eng.bspec.fine_spec.width],
@@ -1992,10 +2235,10 @@ def main() -> int:
             "solve_and_correct_s": back.solve_time_s,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
         assert counts["bad_ray_count"] == front_steps + batches, counts
-        if opt_costs:
-            failed = int((torch.stack(opt_costs)
-                          > eng.config.optimize_failed_cost).sum())
-            report["optimizer_pose_taken"] = len(opt_costs) - failed
+        n_opt = int(opt_count)
+        if n_opt:
+            failed = int((opt_costs[:n_opt] > eng.config.optimize_failed_cost).sum())
+            report["optimizer_pose_taken"] = n_opt - failed
             report["fell_back_to_coarse_tier"] = failed
         return eng, report, shapes
 
@@ -2088,6 +2331,7 @@ def main() -> int:
             "dropped_by_move_gate": diag.scans_dropped_move,
             "dropped_by_score_gate": diag.scans_dropped_gate,
             "replay_s": replay_s, "replay_ms_per_scan_fed": replay_s / diag.scans_in * 1e3,
+            **step_path(diag),
             "launches": counts, "launches_by_shape": shapes_said(shapes),
             "stages": eng.timers.as_dict()}
         return eng, report, shapes
@@ -2241,6 +2485,20 @@ def main() -> int:
             ("leg3", rr_config, loop_laser, None, 2,
              [("process", (loop_log.ranges[i], loop_log.odom[i], float(loop_log.times[i])))
               for i in range(60)])])})
+    # ---- phase 9c: the per-scan step replayed from CUDA graphs against the
+    # same step launched eagerly, from the same carried state ----
+    from roborts_slam_tpu_torch.bench.workload import headline_workload as _hw
+
+    corridor_scans = [(loop_log.ranges[i], loop_log.odom[i], float(loop_log.times[i]))
+                      for i in range(len(loop_log))]
+    emit({"phase": "step_graph", "device": smi, **step_graph_phase(
+        SlamEngine, dev, [
+            ("leg1", config, laser, 30.0, 1,
+             [(ranges[i], odom[i], feed_times[k]) for k, i in enumerate(order)], 10, 25),
+            ("leg3", rr_config, loop_laser, None, 2, corridor_scans, STEP_GRAPH_LEG3_WARM, 30),
+            ("leg4", df_config, loop_laser, 40.0, 1, corridor_scans[:200], 10, 25)],
+        _hw(device=dev), tmp.name)})
+    torch.cuda.empty_cache()
     # each remaining matcher option once on the card, 40 scans each; their
     # launches are held to the compared shapes, and listed under leg 4's
     for flag in ("use_fast_correlation_match", "use_running_range_scan_match"):

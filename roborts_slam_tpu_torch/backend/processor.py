@@ -18,20 +18,23 @@ Heavy pieces run on the device:
 - ``fused_frontend_chain_step`` / ``fused_cursor_step``: the front-end step,
   the chain batch of the chains predicted for the scan and the store row
   written on the device, with the step's summary and the chain rows packed
-  into one vector: one host read per scan, or none until the pipelined
-  engine reconciles it.
+  into one vector, which the engine reads once per scan (the pipelined
+  engine when it reconciles the scan).
 - ``solve_pose_graph``: the SPA solve (backend/spa.py).
 
 The JAX package donates buffers to its fused programs and keeps a
-non-donating copy for its asynchronous mode; here both steps write the maps
-and the store's device rows in place, on the one CUDA stream both engine
-threads launch on. Its compiler-measured peak memory per bucket is
-measured here from the allocator (``calibrate_chain_batch``).
+non-donating copy for its asynchronous mode; here both steps write the maps,
+the front-end scalars and the store's device rows in place, on the one CUDA
+stream both engine threads launch on, and read nothing: on the card the
+engine captures each of them into a CUDA graph and replays it
+(``step_graph.py``). In asynchronous mode the worker reads only the pub map's
+clone and store rows below the step's slot, which no step overwrites. Its
+compiler-measured peak memory per bucket is measured here from the allocator
+(``calibrate_chain_batch``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Callable
@@ -45,8 +48,11 @@ from ..models.grid_map import (
 )
 from ..frontend.matchers import MatcherParams, scan_match
 from ..frontend.processor import frontend_step
+from ..ops.correlative import valid_count
+from ..ops.cuda.correlation import kernel_version
 from ..ops.raster import stamp_scan_batch
 from ..ops.raycast import map_feedback_penalty
+from ..step_graph import StepGraph, signature
 from .pose_graph import PoseGraph
 from .spa import solve_pose_graph
 
@@ -76,7 +82,7 @@ class BackendSpec:
 
 def chain_match(spec: BackendSpec,
                 chain_points, chain_masks, chain_poses, chain_valid,
-                points, mask, n_valid: int, init_pose, center_pose,
+                points, mask, n_valid, init_pose, center_pose,
                 pub_hits, pub_passes, pub_offset):
     """ScanMatchInterface (slam_processor.cpp:250-326) for ``B`` chains at
     once: back-end maps recentered on ``center_pose``
@@ -89,6 +95,7 @@ def chain_match(spec: BackendSpec,
     cfg = spec.config
     B = chain_points.shape[0]
     dev = chain_points.device
+    n_valid = valid_count(n_valid, dev)
 
     def recentered(pspec: ProbMapSpec) -> ProbMap:
         size_x = pspec.width * pspec.resolution
@@ -144,20 +151,26 @@ def chain_match_batch_gather(spec: BackendSpec,
     in one batched call (the reference loops chains serially,
     range_scan_pose_graph.cpp:125-164), with the scans gathered on the
     device from the store's resident buffers by a (B, K) id matrix
-    (-1 = padding). Per call the host ships only ids + init poses."""
+    (-1 = padding). Per call the host ships only ids + init poses.
+    ``scan_id``: a host int, or a (1,) int64 tensor on the device (with
+    ``n_valid`` a device scalar: nothing of the call is then a host value)."""
     ids = torch.clamp(chain_ids, min=0)
     valid = chain_ids >= 0                              # (B, K)
     cp = all_points[ids]                                # (B, K, P, 2)
     cm = all_masks[ids] & valid[..., None]
     cpo = all_poses[ids]
-    return chain_match(spec, cp, cm, cpo, valid,
-                       all_points[scan_id], all_masks[scan_id], n_valid,
+    if isinstance(scan_id, torch.Tensor):
+        points, mask = (all_points.index_select(0, scan_id)[0],
+                        all_masks.index_select(0, scan_id)[0])
+    else:
+        points, mask = all_points[scan_id], all_masks[scan_id]
+    return chain_match(spec, cp, cm, cpo, valid, points, mask, n_valid,
                        init_poses, center_pose,
                        pub_hits, pub_passes, pub_offset)
 
 
 def _chain_rows(bspec: BackendSpec, state, store_points, store_masks,
-                store_poses, chain_ids, points, mask, n_valid: int, pose):
+                store_poses, chain_ids, points, mask, n_valid, pose):
     """Match the scan against the chains of ``chain_ids (B, K)`` (-1 =
     padding) gathered on the device from the store's rows, with the matched
     ``pose`` as init and centre and the front end's post-update pub map as
@@ -176,40 +189,46 @@ def _chain_rows(bspec: BackendSpec, state, store_points, store_masks,
                       bcov.reshape(B, 9).to(torch.float32)], dim=1).reshape(-1)
 
 
+def _slot_index(slot, device) -> torch.Tensor:
+    """A store row as a (1,) int64 index on the device (a host int is
+    written by one fill)."""
+    if isinstance(slot, torch.Tensor):
+        return slot
+    return torch.full((1,), int(slot), dtype=torch.int64, device=device)
+
+
 def fused_frontend_chain_step(fspec, bspec: BackendSpec, state,
-                              points, mask, n_valid: int, cur_odom,
+                              points, mask, n_valid, cur_odom,
                               store_points, store_masks, store_poses,
-                              chain_ids, store_slot: int, timers=None):
+                              chain_ids, store_slot):
     """The front-end step, the LinkNearChains / TryCloseLoop-coarse chain
-    batch of the chains predicted for this scan, and the store append, with
-    one host read (JAX ``_fused_frontend_chain_impl``). The maps are updated
-    under the gate on the device (``frontend_step(device_gate=True)``); the
-    chain batch takes the matched pose as init and centre and the
-    post-update pub map, so where the predicted chain set is the real one
-    its rows are what the separate batch would give (the consumer checks the
-    sets and matches again where they differ). The scan is written at
-    ``store_slot`` of the store's device rows whether it is kept or not: a
-    rejected scan's row is dead until the next kept scan overwrites it, and
-    the batch reads only rows below the slot. Returns ``(state, info,
-    summary)`` with ``summary`` the float64 host copy of the (15 + B·13,)
-    vector: the step's summary, then each chain row. ``timers`` (a
-    ``StageTimers``) times that read as ``frontend_fetch``."""
+    batch of the chains predicted for this scan, and the store append, all
+    on the device (JAX ``_fused_frontend_chain_impl``); nothing is read: the
+    caller reads the packed vector once. The maps are updated under the gate
+    on the device (``frontend_step(device_gate=True)``); the chain batch
+    takes the matched pose as init and centre and the post-update pub map,
+    so where the predicted chain set is the real one its rows are what the
+    separate batch would give (the consumer checks the sets and matches
+    again where they differ). The scan is written at ``store_slot`` (a (1,)
+    int64 tensor or a host int) of the store's device rows whether it is
+    kept or not: a rejected scan's row is dead until the next kept scan
+    overwrites it, and the batch reads only rows below the slot. Returns
+    ``(state, info, packed)``, ``packed`` the (15 + B·13,) device vector:
+    the step's summary, then each chain row. On the card the engine
+    captures this in a CUDA graph."""
     state, info = frontend_step(fspec, state, points, mask, n_valid, cur_odom,
                                 device_gate=True)
     rows = _chain_rows(bspec, state, store_points, store_masks, store_poses,
                        chain_ids, points, mask, n_valid, info.pose)
-    store_points[store_slot] = points
-    store_masks[store_slot] = mask
-    store_poses[store_slot] = info.pose
-    packed = torch.cat([info.packed, rows])
-    with (timers.stage("frontend_fetch") if timers is not None
-          else contextlib.nullcontext()):
-        summary = packed.cpu().numpy().astype(np.float64)
-    return state, info, summary
+    slot = _slot_index(store_slot, points.device)
+    store_points.index_copy_(0, slot, points[None])
+    store_masks.index_copy_(0, slot, mask[None])
+    store_poses.index_copy_(0, slot, info.pose[None])
+    return state, info, torch.cat([info.packed, rows])
 
 
 def fused_cursor_step(fspec, bspec: BackendSpec, state,
-                      points, mask, n_valid: int, cur_odom, cur_time,
+                      points, mask, n_valid, cur_odom, cur_time,
                       store_points, store_masks, store_poses,
                       chain_ids, cursor):
     """The pipelined step (JAX ``_fused_cursor_impl``): the store's append
@@ -254,6 +273,12 @@ class Backend:
         self.num_fused_misses = 0         # predicted chain set diverged (or stale)
         self.chain_match_time_s = 0.0     # host clock, each call ends in its fetch
         self.solve_time_s = 0.0           # host clock, SPA solve + corrections
+        # the separate chain batches' programs by (bucket, K) (step_graph.py):
+        # replayed from CUDA graphs where ``capture`` is set (the engine sets
+        # it with its steps'), counted in the engine's ``diag`` by program
+        self._programs: dict = {}
+        self.capture = False
+        self.diag = None
         # bucket -> peak bytes of one chain batch (calibrate_chain_batch), and
         # of the fused step at that bucket (the engine's warm_backend): the
         # fused step holds the front end's temporaries beside the batch's
@@ -370,22 +395,66 @@ class Backend:
 
     def _batch_on_device(self, ids: np.ndarray, scan_id: int, inits: np.ndarray):
         """``chain_match_batch_gather`` on the (bucket, K) id matrix ``ids``
-        and (bucket, 3) ``inits``; returns the device results."""
+        and (bucket, 3) ``inits``, through the batch's program
+        (``_batch_program``): its inputs staged into one vector, the pub map
+        copied into the program's own planes, a CUDA graph replay on the card
+        where ``capture`` is set. Returns the device results (views of the
+        program's output, overwritten by its next run)."""
         st = self.store
-        all_pts, all_msk, all_poses = st.device_arrays()
-        dev = all_pts.device
+        rows = st.device_arrays()
         # the pub map can grow mid-run: pair the arrays with the spec they
         # were built under
         pub_spec, *pub = st.pub_map_arrays()
         spec = (self.spec if pub_spec == self.spec.pub_spec
                 else dataclasses.replace(self.spec, pub_spec=pub_spec))
-        return chain_match_batch_gather(
-            spec, all_pts, all_msk, all_poses,
-            torch.as_tensor(ids, device=dev), scan_id, st.n_valid(scan_id),
-            torch.as_tensor(inits, device=dev),
-            torch.as_tensor(st.poses[scan_id], dtype=torch.float32, device=dev),
-            *pub,
-        )
+        B, K = ids.shape
+        prog = self._batch_program(spec, rows, pub, B, K)
+        host = torch.empty(prog.staged.shape, dtype=torch.float32,
+                           pin_memory=prog.staged.is_cuda)
+        a = host.numpy()
+        a[:B * K] = ids.reshape(-1)
+        a[B * K:B * K + 2] = (scan_id, st.n_valid(scan_id))
+        a[B * K + 2:B * K + 2 + 3 * B] = inits.reshape(-1)
+        a[B * K + 2 + 3 * B:] = st.poses[scan_id]
+        prog.staged.copy_(host, non_blocking=True)
+        for plane, live in zip(prog.pub, pub):
+            plane.copy_(live)
+        out = prog()
+        if self.diag is not None and prog.last != "eager":
+            d, name = self.diag, f"batch_b{B}"
+            d.replays_by_key[name] = d.replays_by_key.get(name, 0) + 1
+            if prog.last == "capture":
+                d.captures_by_key[name] = d.captures_by_key.get(name, 0) + 1
+        return out[:, :3], out[:, 3], out[:, 4:].reshape(B, 3, 3)
+
+    def _batch_program(self, spec: BackendSpec, rows, pub, B: int, K: int) -> StepGraph:
+        """The separate chain batch of ``B`` chains of ``K`` scans as a
+        program over one staged vector [ids (B·K) | scan id | n_valid | inits
+        (3B) | centre (3)], gathering from the store's device ``rows`` and
+        reading its own copy of the pub map; made anew where the spec, the
+        correlation kernel, the store's buffers or the pub map's shape
+        changed."""
+        sig = (kernel_version(), signature(rows), tuple(tuple(t.shape) for t in pub))
+        prog = self._programs.get((B, K))
+        if prog is not None and prog.signature == sig and prog.spec == spec:
+            return prog
+        if prog is not None:
+            prog.release()
+        planes = [torch.zeros_like(t) for t in pub]
+
+        def fn(staged):
+            o = B * K
+            bpose, bscore, bcov = chain_match_batch_gather(
+                spec, *rows, staged[:o].view(B, K).to(torch.int64),
+                staged[o:o + 1].to(torch.int64), staged[o + 1].to(torch.int32),
+                staged[o + 2:o + 2 + 3 * B].view(B, 3), staged[o + 2 + 3 * B:], *planes)
+            return torch.cat([bpose.to(torch.float32), bscore[:, None].to(torch.float32),
+                              bcov.reshape(B, 9).to(torch.float32)], dim=1)
+
+        prog = StepGraph(fn, B * K + 5 + 3 * B, rows[0].device, capture=self.capture)
+        prog.signature, prog.spec, prog.pub = sig, spec, planes
+        self._programs[(B, K)] = prog
+        return prog
 
     def _match_chain_batch_one(self, chain_id_lists: list[list[int]],
                                scan_id: int, inits: np.ndarray):

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..step_graph import capture_guard
 from ..utils.geometry import normalize_angle
 
 host_syncs = 0     # device->host scalar reads made by the dense solve so far
@@ -257,8 +258,10 @@ def _replayed(step, state: _LMState, n: int) -> _LMState:
     into its input, replayed ``n - 1`` times on the caller's stream. The
     capture is thread-local: the engine's front end launches and reads from
     another thread meanwhile (a draw from the card's random generator there
-    would be refused; the engine makes none). A capture that fails raises;
-    nothing falls back to eager launches."""
+    would be refused; the engine makes none). The capture holds
+    ``step_graph.capture_guard`` (no other capture, no graph destroyed and
+    no garbage collected meanwhile). A capture that fails raises; nothing
+    falls back to eager launches."""
     dev = state.poses.device
     main = torch.cuda.current_stream(dev)
     side = torch.cuda.Stream(dev)
@@ -271,12 +274,13 @@ def _replayed(step, state: _LMState, n: int) -> _LMState:
         for s, t in zip(static, step(state)):
             s.copy_(t)
         if n > 1:
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                for s, t in zip(static, step(static)):
-                    s.copy_(t)
-            finally:
-                graph.capture_end()
+            with capture_guard():
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    for s, t in zip(static, step(static)):
+                        s.copy_(t)
+                finally:
+                    graph.capture_end()
     main.wait_stream(side)
     for _ in range(n - 1):
         graph.replay()

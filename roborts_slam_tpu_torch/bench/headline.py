@@ -7,7 +7,11 @@ hot path: the 3-tier (coarse, fine, super-fine) correlative search on a
 ``frontend/matchers.scan_match`` calls in sequence, each starting from the
 previous match's pose plus ``1e-6 · i`` (the online front end's dependency
 chain), sums the scores on the device and fetches the sum once; the time per
-match is the two-point K slope (``bench/timing.py::k_slope_dynamic``). The
+match is the two-point K slope (``bench/timing.py::k_slope_dynamic``). Each
+match is one replay of a CUDA graph of ``scan_match`` (``match_chain``), as
+the JAX headline times K matches chained in one jitted program: the time is
+the match's, not Python's launches (before it was graph-replayed, the same
+slope measured the host's ≈ 520 launches a match). The
 correlation kernel is the one ``ROBORTS_CORR_KERNEL`` selects (1 or 2) on
 the card, the plain PyTorch version on CPU tensors. ``batch > 1`` matches
 that many copies of the map side by side through ``scan_match``'s leading
@@ -72,12 +76,19 @@ def cpu_baseline_scans_per_sec(beams: int = 1081, iters: int = 20) -> float:
     return max(once() for _ in range(3))
 
 
-def match_chain(w: dict, batch: int = 1):
+def match_chain(w: dict, batch: int = 1, graph: bool = True):
     """``f(seed, K)``: K sequential ``scan_match`` calls on workload ``w``,
     each from the previous pose plus ``1e-6 · i``; returns the sum of the
-    scores as a device scalar. The seed is not used: nothing on the card
-    memoizes a repeated call."""
+    scores as a device scalar. The carried pose, ``i`` and the sum live in
+    device buffers and ``1e-6 · i`` is added on the device, so a match reads
+    nothing: on the card (``graph``) one match is captured in a CUDA graph
+    at the chain's second match and replayed from then on, the counterpart
+    of the JAX headline's one jitted ``fori_loop``; with ``graph=False``, or
+    on the CPU, every match launches eagerly (the yardstick). The seed is
+    not used: nothing on the card memoizes a repeated call."""
     from ..frontend.matchers import scan_match
+    from ..ops.correlative import valid_count
+    from ..step_graph import StepGraph
 
     fine, coarse = w["fine_probs"], w["coarse_probs"]
     offset, coff, init = w["offset"], w["coff"], w["init_pose"]
@@ -86,18 +97,34 @@ def match_chain(w: dict, batch: int = 1):
         coarse = coarse.expand(batch, *coarse.shape).contiguous()
         offset, coff = offset.expand(batch, 2), coff.expand(batch, 2)
         init = init.expand(batch, 3)
+    dev = fine.device
+    n_valid = valid_count(w["n_valid"], dev)
+    pose = init.clone()
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    acc = torch.zeros((), dtype=torch.float32, device=dev)
 
-    def f(seed, K):
-        pose = init
-        acc = torch.zeros((), dtype=torch.float32, device=fine.device)
-        for i in range(K):
-            out = scan_match(w["matcher"], w["fine_spec"], fine, offset,
-                             w["coarse_spec"], coarse, coff, w["points"],
-                             w["mask"], w["n_valid"], pose)
-            pose = out.pose + 1e-6 * i
-            acc = acc + out.score.sum()
+    def one(_staged=None):
+        out = scan_match(w["matcher"], w["fine_spec"], fine, offset,
+                         w["coarse_spec"], coarse, coff, w["points"],
+                         w["mask"], n_valid, pose)
+        # 1e-6 · i in float64, then float32: Python's product, as the
+        # scalar a float32 tensor adds
+        pose.copy_(out.pose + (i.double() * 1e-6).float())
+        i.add_(1)
+        acc.add_(out.score.sum())
         return acc
 
+    step = StepGraph(one, 1, dev, capture=graph)
+
+    def f(seed, K):
+        pose.copy_(init)
+        i.zero_()
+        acc.zero_()
+        for _ in range(K):
+            step()
+        return acc.clone()
+
+    f.step = step
     return f
 
 

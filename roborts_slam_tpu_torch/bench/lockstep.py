@@ -125,37 +125,36 @@ def carry(z: dict, device="cpu", **engine_kwargs):
 
 class PortTap:
     """While entered, records the port engine's front-end step (blocking,
-    windowed or fused): its packed summary as ``summary``, and the scan
-    it took as ``seen`` (points, mask, n_valid: NumPy)."""
-
-    NAMES = ("frontend_step", "frontend_step_windowed", "fused_frontend_chain_step")
+    windowed or fused, eager or replayed from a CUDA graph): its packed
+    summary as ``summary`` (the engine's ``last_summary``), and the scan it
+    took as ``seen`` (points, mask, n_valid: NumPy). A pipelined engine's
+    step is reconciled right after its dispatch (the pipeline's blocking
+    form), and the step's return is its kept decision."""
 
     def __enter__(self):
-        from .. import engine as tengine
+        from ..engine import SlamEngine
 
-        self.summary, self.seen, self._mod = None, None, tengine
-        self._orig = {n: getattr(tengine, n) for n in self.NAMES}
+        self.summary, self.seen, self._cls = None, None, SlamEngine
+        self._orig = SlamEngine._process_gated
+        orig, tap = self._orig, self
 
-        def tapped(name, fn):
-            at = 3 if name == "fused_frontend_chain_step" else -4   # the scan's points
+        def run(eng, points, mask, n_valid, odom, t):
+            eng.last_summary = None
+            out = orig(eng, points, mask, n_valid, odom, t)
+            if eng._inflight:          # a pipelined step: reconciled here
+                eng._drain_pipeline()
+                out = bool(eng.last_summary[12] > 0.5)
+            if eng.last_summary is not None:
+                tap.summary = np.asarray(eng.last_summary, np.float64)
+                tap.seen = {"points": np.array(points, np.float32),
+                            "mask": np.array(mask, bool), "n_valid": int(n_valid)}
+            return out
 
-            def run(*args, **kw):
-                out = fn(*args, **kw)
-                s = out[2] if len(out) == 3 else out[1].summary
-                self.summary = np.asarray(s, np.float64)
-                p, m, n = args[at:at + 3] if at > 0 else args[at:-1]
-                self.seen = {"points": p.detach().cpu().numpy(), "mask": m.detach().cpu().numpy(),
-                             "n_valid": int(n)}
-                return out
-            return run
-
-        for n, fn in self._orig.items():
-            setattr(tengine, n, tapped(n, fn))
+        SlamEngine._process_gated = run
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self._orig.items():
-            setattr(self._mod, n, fn)
+        self._cls._process_gated = self._orig
 
 
 class GridTap:

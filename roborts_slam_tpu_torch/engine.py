@@ -26,6 +26,20 @@ pose stream (``pose_at``) and the live-output hooks (``on_pose``,
   ``pipeline_depth`` scans behind. Events that rewrite maps or read them
   drain the pipeline first.
 
+On the card each per-scan step — the blocking step, the fused step at each
+chain bucket, the pipelined step — is one program replayed from a CUDA graph
+(``step_graph.py``), the counterpart of the JAX engine's jitted step: the
+scan's inputs are staged into the program's one input vector, the program
+writes the front-end state and the store rows in place, and its packed
+summary is read once. Programs are keyed by the step's kind and bucket and
+by every buffer they touch; what replaces or resizes a buffer (pub growth,
+store capacity doubling, a new state) leads to a new capture, and recenters
+and corrections write their maps into the existing buffers. Which steps stay
+eager is a matter of configuration (``diag.step_graph``): the CPU,
+``step_graph=False``, the windowed match and the branch-and-bound coarse
+stage. The back end's separate chain batches are programs of the same kind
+(``Backend._batch_program``), replayed where the steps are.
+
 Two threads share the engine in asynchronous mode. The maps are updated in
 place, so the front-end step, map growth, recenters and corrections run
 under ``_state_lock``, the scan store takes its own lock round every access,
@@ -64,7 +78,9 @@ from .frontend.processor import (
 from .io.dedistort import dedistort_scan
 from .models.scan import LaserModel, pack_points, ranges_to_packed
 from .models.grid_map import CountMap, ProbMap, count_map_states, make_prob_map
+from .ops.cuda.correlation import kernel_version
 from .ops.raster import rebuild_count_map, stamp_scan_batch
+from .step_graph import StepGraph, signature, stage, staged_size, unstage
 from .utils.profiling import StageTimers
 
 
@@ -109,6 +125,16 @@ def _rebuild_all_maps(pub_spec, coarse_spec, fine_spec,
                                      fine_off, pts, msk, poses, valid,
                                      coarse_blur, fine_blur)
     return pub, coarse, fine
+
+
+def _upload(dst: torch.Tensor, src: np.ndarray):
+    """Copy host rows into the device rows ``dst`` without waiting for the
+    device: through pinned memory on the card (a copy from pageable memory
+    synchronises), which the host allocator keeps until the copy has run."""
+    host = torch.from_numpy(np.ascontiguousarray(src))
+    if dst.is_cuda:
+        host = host.pin_memory()
+    dst.copy_(host, non_blocking=True)
 
 
 class ScanStore:
@@ -308,16 +334,15 @@ class ScanStore:
                 self._dev_cap = cap
                 self._dev_count = 0
                 self._dev_poses_stale = True
-            while self._dev_count < n:
-                i = self._dev_count
-                self._dev_points[i] = torch.as_tensor(self._points[i], device=dev)
-                self._dev_masks[i] = torch.as_tensor(self._masks[i], device=dev)
-                self._dev_poses[i] = torch.as_tensor(
-                    self.poses[i], dtype=torch.float32, device=dev)
-                self._dev_count = i + 1
+            lo = self._dev_count
+            if lo < n:
+                _upload(self._dev_points[lo:n], np.stack(self._points[lo:n]))
+                _upload(self._dev_masks[lo:n], np.stack(self._masks[lo:n]))
+                _upload(self._dev_poses[lo:n],
+                        np.asarray(self.poses[lo:n], np.float32))
+                self._dev_count = n
             if self._dev_poses_stale and n:
-                self._dev_poses[:n] = torch.as_tensor(
-                    self.poses_array(), dtype=torch.float32, device=dev)
+                _upload(self._dev_poses[:n], self.poses_array().astype(np.float32))
             self._dev_poses_stale = False
             return self._dev_points, self._dev_masks, self._dev_poses
 
@@ -366,6 +391,17 @@ class EngineDiagnostics:
     backend_time_s: float = 0.0
     dedistort_time_s: float = 0.0  # host clock, inside _dedistorted_points
     recenter_time_s: float = 0.0   # host clock, inside _rebuild_match_maps_at
+    # the per-scan step's path: "graph" (replayed from CUDA graphs) or
+    # "eager: <the configuration that keeps it eager>"
+    step_graph: str = ""
+    graph_captures: int = 0        # CUDA graph captures of a step program
+    graph_replays: int = 0         # steps replayed from a graph (a capture's included)
+    eager_steps: int = 0           # steps launched eagerly (a program's first call included)
+    # program -> captures / replays: the steps' ("frontend", "fused_b<B>",
+    # "cursor", "cursor_b<B>") and the back end's separate chain batches'
+    # ("batch_b<B>")
+    captures_by_key: dict = dataclasses.field(default_factory=dict)
+    replays_by_key: dict = dataclasses.field(default_factory=dict)
 
 
 class SlamEngine:
@@ -376,7 +412,7 @@ class SlamEngine:
                  synchronous_backend: bool = True,
                  fused_backend: bool = True,
                  pipelined_fetch: bool = False,
-                 device=None):
+                 device=None, step_graph: bool = True):
         self.device = resolve_device(device)
         self.config = config
         self.laser = laser
@@ -455,6 +491,15 @@ class SlamEngine:
                                if not synchronous_backend else None)
         self._backend_thread: threading.Thread | None = None
         self._backend_error: BaseException | None = None
+        # per-scan step programs (step_graph.py) by (kind, points, chain ids'
+        # shape): replayed from CUDA graphs on the card unless the
+        # configuration keeps the step eager
+        self._programs: dict = {}
+        self.diag.step_graph = self._step_path(step_graph)
+        self.backend.capture = self.diag.step_graph == "graph"
+        self.backend.diag = self.diag
+        # the packed summary of the latest step, as read (float64)
+        self.last_summary: np.ndarray | None = None
 
     # ---- gates (MoveEnough, slam_processor.cpp:604-616) ----
 
@@ -592,32 +637,24 @@ class SlamEngine:
                 fused_in = self._prepare_fused(
                     *self._predict_chains(np_points, np_mask, odom))
             t0 = _time.perf_counter()
-            scan = (torch.as_tensor(np_points, device=dev),
-                    torch.as_tensor(np_mask, device=dev), int(n_valid),
-                    torch.as_tensor(odom, dtype=torch.float32, device=dev))
             with self.timers.stage("frontend_step"):
                 if windowed:
                     # windowed match path (slam_processor.cpp:134-159): the
                     # running-range window scans are the match map source,
                     # gathered on the device from the store mirror by id
+                    scan = (torch.as_tensor(np_points, device=dev),
+                            torch.as_tensor(np_mask, device=dev), int(n_valid),
+                            torch.as_tensor(odom, dtype=torch.float32, device=dev))
                     self.state, info = frontend_step_windowed(
                         self.fspec, self.state,
                         *self.store.running_range_arrays(), *scan,
                         timers=self.timers)
                     s = info.summary
-                elif fused_in is not None:
-                    with self.store._lock:
-                        rows = self.store.device_arrays(reserve=1)
-                        slot = self.store._dev_count
-                    self.state, _, s = fused_frontend_chain_step(
-                        self.fspec, self.bspec, self.state, *scan, *rows,
-                        torch.as_tensor(fused_in["ids"], device=dev), slot,
-                        timers=self.timers)
-                    self.diag.fused_steps += 1
+                    self.diag.eager_steps += 1
                 else:
-                    self.state, info = frontend_step(
-                        self.fspec, self.state, *scan, timers=self.timers)
-                    s = info.summary
+                    s = self._blocking_step(np_points, np_mask, int(n_valid), odom, t,
+                                            fused_in)
+            self.last_summary = s
             # the step read ONE packed vector — pose + cov + gates, and the
             # chain rows of a fused step
             accepted = bool(s[12] > 0.5)
@@ -659,6 +696,148 @@ class SlamEngine:
             self._ensure_backend_thread()
             self._backend_queue.put((scan_id, cov, prematched))
         return True
+
+    # ---- the per-scan step programs (step_graph.py; JAX's jitted steps) ----
+
+    def _step_path(self, step_graph: bool) -> str:
+        """Whether the per-scan steps replay CUDA graphs ("graph") or launch
+        eagerly, and which configuration keeps them eager."""
+        cfg = self.config
+        if self.device.type != "cuda":
+            return "eager: cpu tensors"
+        if not step_graph:
+            return "eager: step_graph=False"
+        if cfg.use_fast_correlation_match:
+            # the branch-and-bound stage copies host constants at every level
+            # and loops over the chain batch in Python
+            return "eager: branch-and-bound coarse stage"
+        if cfg.use_running_range_scan_match:
+            return "eager: windowed match"
+        return "graph"
+
+    def _stage_scan(self, np_points, np_mask, n_valid: int, odom, t: float, ids,
+                    slot: int, seed: bool = False) -> torch.Tensor:
+        """Everything a step sends to the device, as one float32 vector
+        (``step_graph.stage``: the scan, ``n_valid``, odometry, the time since
+        the first stamp, the store slot or cursor, the cursor's seed flag, the
+        chain ids), in pinned memory on the card: a copy from pageable memory
+        waits for the device. The caller keeps it until the step has run."""
+        size = staged_size(np_points.shape[0], None if ids is None else ids.shape)
+        host = torch.empty((size,), dtype=torch.float32,
+                           pin_memory=self.device.type == "cuda")
+        stage(host.numpy(), np_points, np_mask, n_valid, odom,
+              t - self._dev_time_origin, slot, seed, ids)
+        return host
+
+    def _program(self, kind: str, P: int, ids_shape) -> StepGraph:
+        """The program of step ``kind`` — "frontend" (the blocking step),
+        "fused" (with the chain batch of the ids' shape ``ids_shape``) or
+        "cursor" (the pipelined step, ``ids_shape`` None without chains) —
+        for scans of ``P`` points, made anew when the specs, the correlation
+        kernel or a buffer it touches changed since it was made (the
+        signature)."""
+        st, store = self.state, self.store
+        bufs = [st.pub.hits, st.pub.passes, st.pub.offset, st.coarse.probs,
+                st.coarse.offset, st.fine.probs, st.fine.offset, st.pose,
+                st.last_map_update_pose, st.map_penalize_times, st.scan_index,
+                st.last_kept_odom, st.last_step_time]
+        rows = (store._dev_points, store._dev_masks, store._dev_poses)
+        if kind != "frontend":
+            bufs += rows
+        if kind == "cursor":
+            bufs.append(self._dev_cursor)
+        fspec, bspec = self.fspec, self.bspec
+        sig = (kernel_version(), signature(bufs))
+        key = (kind, P, ids_shape)
+        prog = self._programs.get(key)
+        if (prog is not None and prog.specs[0] is fspec and prog.specs[1] is bspec
+                and prog.signature == sig):
+            return prog
+        if kind == "frontend":
+            def fn(staged):
+                d = unstage(staged, P, None)
+                _, info = frontend_step(fspec, st, d["points"], d["mask"], d["n_valid"],
+                                        d["odom"], device_gate=True)
+                return info.packed
+        elif kind == "fused":
+            def fn(staged):
+                d = unstage(staged, P, ids_shape)
+                return fused_frontend_chain_step(
+                    fspec, bspec, st, d["points"], d["mask"], d["n_valid"], d["odom"],
+                    *rows, d["ids"], d["slot"])[2]
+        else:
+            cursor = self._dev_cursor
+
+            def fn(staged):
+                d = unstage(staged, P, ids_shape)
+                # an empty pipeline seeds the cursor with the store's length
+                cursor.copy_(torch.where(d["seed"], d["slot"], cursor))
+                return fused_cursor_step(
+                    fspec, bspec, st, d["points"], d["mask"], d["n_valid"], d["odom"],
+                    d["time"], *rows, d["ids"], cursor)[2]
+        if prog is not None:
+            prog.release()
+        prog = StepGraph(fn, staged_size(P, ids_shape), self.device,
+                         capture=self.diag.step_graph == "graph")
+        prog.specs, prog.signature = (fspec, bspec), sig
+        self._programs[key] = prog
+        return prog
+
+    def _run_program(self, kind: str, host: torch.Tensor, P: int,
+                     ids_shape) -> torch.Tensor:
+        """Copy the staged ``host`` vector (a scan of ``P`` points) into the
+        program's input and run it (a replay on the card); returns its packed
+        output on the device, read nothing. Counts the capture, replay or
+        eager step in ``diag``."""
+        prog = self._program(kind, P, ids_shape)
+        prog.staged.copy_(host, non_blocking=True)
+        out = prog()
+        d = self.diag
+        if prog.last == "eager":
+            d.eager_steps += 1
+        else:
+            name = kind if ids_shape is None else f"{kind}_b{ids_shape[0]}"
+            d.graph_replays += 1
+            d.replays_by_key[name] = d.replays_by_key.get(name, 0) + 1
+            if prog.last == "capture":
+                d.graph_captures += 1
+                d.captures_by_key[name] = d.captures_by_key.get(name, 0) + 1
+        return out
+
+    def _blocking_step(self, np_points, np_mask, n_valid: int, odom, t: float,
+                       fused_in) -> np.ndarray:
+        """One blocking front-end step through its program — the fused one
+        (chain batch and store row on the device) where ``fused_in`` is
+        given — and its one host read: the packed summary (float64)."""
+        ids, slot, kind = None, 0, "frontend"
+        if fused_in is not None:
+            with self.store._lock:
+                self.store.device_arrays(reserve=1)
+                slot = self.store._dev_count
+            ids, kind = fused_in["ids"], "fused"
+            self.diag.fused_steps += 1
+        host = self._stage_scan(np_points, np_mask, n_valid, odom, t, ids, slot)
+        packed = self._run_program(kind, host, np_points.shape[0],
+                                   None if ids is None else ids.shape)
+        with self.timers.stage("frontend_fetch"):
+            return packed.cpu().numpy().astype(np.float64)
+
+    def _install_maps(self, pub=None, coarse=None, fine=None):
+        """Write rebuilt maps into the state's own buffers, which the step
+        programs hold; a map whose shape changed (the pub map grew) takes
+        its new buffers, and the programs are captured again. Callers hold
+        the state lock."""
+        st = self.state
+        for name, new in (("pub", pub), ("coarse", coarse), ("fine", fine)):
+            if new is None:
+                continue
+            old = getattr(st, name)
+            if all(o.shape == n.shape for o, n in zip(old, new)):
+                for o, n in zip(old, new):
+                    if o is not n:
+                        o.copy_(n)
+            else:
+                setattr(st, name, new)
 
     # ---- the fused step's chain rows (JAX engine.py:1084-1168) ----
 
@@ -798,33 +977,6 @@ class SlamEngine:
         while self._inflight:
             self._reconcile_one()
 
-    def _stage_scan(self, np_points, np_mask, odom, t: float, ids, cursor: int):
-        """Everything a pipelined dispatch sends to the device in one copy: a
-        float32 vector [points (P·2) | mask (P) | odom (3) | time since the
-        first stamp (1) | store cursor (1) | chain ids (B·K)], in pinned
-        memory on the card (a copy from pageable memory waits for the
-        device). Returns the host buffer, which the caller keeps until the
-        step has run, and device views of its parts."""
-        P = np_points.shape[0]
-        n = 3 * P + 5 + (0 if ids is None else ids.size)
-        cuda = self.device.type == "cuda"
-        host = torch.empty((n,), dtype=torch.float32, pin_memory=cuda)
-        a = host.numpy()
-        a[:2 * P] = np_points.reshape(-1)
-        a[2 * P:3 * P] = np_mask
-        a[3 * P:3 * P + 3] = odom
-        a[3 * P + 3] = t - self._dev_time_origin      # float64, then rounded
-        a[3 * P + 4] = cursor
-        if ids is not None:
-            a[3 * P + 5:] = ids.reshape(-1)
-        buf = host.to(self.device, non_blocking=True) if cuda else host.clone()
-        return host, {
-            "points": buf[:2 * P].view(P, 2), "mask": buf[2 * P:3 * P] > 0.5,
-            "odom": buf[3 * P:3 * P + 3], "time": buf[3 * P + 3],
-            "cursor": buf[3 * P + 4:3 * P + 5].to(torch.int64),
-            "ids": (None if ids is None
-                    else buf[3 * P + 5:].view(ids.shape).to(torch.int64))}
-
     def _process_pipelined(self, np_points: np.ndarray, np_mask: np.ndarray,
                            n_valid: int, odom: np.ndarray, t: float) -> bool:
         """Dispatch this scan without waiting for any summary: the step's
@@ -866,8 +1018,7 @@ class SlamEngine:
             # the gate (blocking steps do not carry it)
             lt = (self._prev_process_time - self._dev_time_origin
                   if self._prev_process_time is not None else -3.4e38)
-            self.state.last_step_time = torch.full(
-                (), lt, dtype=torch.float32, device=self.device)
+            self.state.last_step_time.fill_(lt)
             self._pipe_seeded = True
         seed = not self._inflight
         if seed:
@@ -903,22 +1054,20 @@ class SlamEngine:
 
     def _dispatch_pipelined(self, np_points, np_mask, n_valid: int, odom, t: float,
                             fused_in, seed_cursor: bool) -> dict:
-        """Launch one pipelined step and the copy of its packed vector into
-        pinned host memory behind an event; reads nothing."""
+        """Launch one pipelined step through its program (the cursor seeded
+        with the store's length where ``seed_cursor``) and the copy of its
+        packed vector into pinned host memory behind an event; reads
+        nothing."""
         ids = None if fused_in is None else fused_in["ids"]
-        host_in, d = self._stage_scan(np_points, np_mask, odom, t, ids,
-                                      len(self.store))
-        if seed_cursor:
-            self._dev_cursor = d["cursor"]
+        if self._dev_cursor is None:
+            self._dev_cursor = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        host_in = self._stage_scan(np_points, np_mask, n_valid, odom, t, ids,
+                                   len(self.store), seed=seed_cursor)
         if fused_in is not None:
             self.diag.fused_steps += 1
-        pts_d, msk_d, poses_d = (self.store._dev_points, self.store._dev_masks,
-                                 self.store._dev_poses)
         with self._state_lock, self.timers.stage("pipe_dispatch"):
-            self.state, _, packed = fused_cursor_step(
-                self.fspec, self.bspec, self.state, d["points"], d["mask"], n_valid,
-                d["odom"], d["time"], pts_d, msk_d, poses_d, d["ids"],
-                self._dev_cursor)
+            packed = self._run_program("cursor", host_in, np_points.shape[0],
+                                       None if ids is None else ids.shape)
             if self.device.type == "cuda":
                 host_out = torch.empty(packed.shape, dtype=torch.float32,
                                        pin_memory=True)
@@ -939,6 +1088,7 @@ class SlamEngine:
             if e["event"] is not None:
                 e["event"].synchronize()
             s = e["host_out"].numpy().astype(np.float64)
+        self.last_summary = s
         accepted = bool(s[12] > 0.5)
         pose = s[:3].copy()
         self._host_pose = pose.copy()
@@ -1201,10 +1351,10 @@ class SlamEngine:
         Callers hold the state lock."""
         cfg = self.config
         pts, msk, poses, valid = self.store.all_arrays()
-        self.state.pub = rebuild_count_map(
+        self._install_maps(pub=rebuild_count_map(
             self.fspec.pub_spec, self.state.pub.offset, pts, msk, poses,
             valid, cfg.map_update_free_factor, cfg.map_update_occu_factor,
-            first_scan_extra=int(cfg.map_min_passthrough))
+            first_scan_extra=int(cfg.map_min_passthrough)))
         self._publish_pub_arrays()
 
     def _grow_pub_to(self, new_w: int, new_h: int,
@@ -1288,10 +1438,11 @@ class SlamEngine:
             d = np.abs(poses[:, :2] - center_new[None]).max(1)
             ids = np.flatnonzero(d <= reach)
         f32 = dict(dtype=torch.float32, device=self.device)
-        self.state.coarse, self.state.fine = _stamp_match_maps(
+        coarse, fine = _stamp_match_maps(
             cs, fs, torch.as_tensor(coarse_off, **f32),
             torch.as_tensor(fine_off, **f32), *self.store.gather(ids),
             bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
+        self._install_maps(coarse=coarse, fine=fine)
         self.diag.recenters += 1
         self.diag.recenter_time_s += _time.perf_counter() - t0
 
@@ -1336,13 +1487,13 @@ class SlamEngine:
             pts, msk, poses, valid = self.store.all_arrays()
             cfg = self.config
             st = self.state
-            st.pub, st.coarse, st.fine = _rebuild_all_maps(
+            self._install_maps(*_rebuild_all_maps(
                 self.fspec.pub_spec, self.fspec.coarse_spec, self.fspec.fine_spec,
                 st.pub.offset, st.coarse.offset, st.fine.offset,
                 pts, msk, poses, valid,
                 cfg.map_update_free_factor, cfg.map_update_occu_factor,
                 int(cfg.map_min_passthrough), bool(cfg.coarse_map_use_blur),
-                bool(cfg.fine_map_use_blur))
+                bool(cfg.fine_map_use_blur)))
             # carry the corrected latest pose forward (deviation from the
             # reference, which leaves current_sensor_pose_ stale; carrying the
             # correction is strictly more robust). Mirror through float32 so the
@@ -1356,8 +1507,8 @@ class SlamEngine:
                                      np.asarray(self.store.odoms[-1], np.float64))
             new_pose = torch.as_tensor(self.store.poses[-1], dtype=torch.float32,
                                        device=self.device)
-            st.pose = new_pose
-            st.last_map_update_pose = new_pose.clone()
+            st.pose.copy_(new_pose)
+            st.last_map_update_pose.copy_(new_pose)
             for i, (t, _) in enumerate(self.trajectory):
                 self.trajectory[i] = (t, self.store.poses[i].copy())
             self._publish_pub_arrays()

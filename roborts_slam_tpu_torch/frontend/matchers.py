@@ -25,7 +25,7 @@ from ..config import SlamConfig
 from ..models.grid_map import ProbMapSpec
 from ..ops.branch_and_bound import BnBParams, bnb_scan_match
 from ..ops.correlative import (
-    COARSE, FINE, SUPER, CorrelativeParams, correlative_scan_match,
+    COARSE, FINE, SUPER, CorrelativeParams, correlative_scan_match, valid_count,
 )
 from ..ops.gauss_newton import OptimizeParams, optimize_scan_match
 
@@ -110,7 +110,7 @@ class ScanMatchOutput(NamedTuple):
 
 
 def _bnb_coarse(params: BnBParams, fine_spec: ProbMapSpec, fine_probs,
-                fine_offset, points, mask, n_valid: int, start_pose):
+                fine_offset, points, mask, n_valid, start_pose):
     """The branch-and-bound coarse stage for maps with any leading batch
     dims: one ``bnb_scan_match`` per map (a Python loop where the JAX package
     ``vmap``s). Returns (pose (...,3), response (...,))."""
@@ -132,7 +132,7 @@ def _bnb_coarse(params: BnBParams, fine_spec: ProbMapSpec, fine_probs,
 def scan_match(params: MatcherParams,
                fine_spec: ProbMapSpec, fine_probs, fine_offset,
                coarse_spec: ProbMapSpec, coarse_probs, coarse_offset,
-               points, mask, n_valid: int, init_pose,
+               points, mask, n_valid, init_pose,
                use_fine_scan_match: bool = True) -> ScanMatchOutput:
     """One full match (ScanMatchers::ScanMatch, scan_matchers.h:179-289).
 
@@ -141,7 +141,9 @@ def scan_match(params: MatcherParams,
     read only when ``params.use_optimize_scan_match`` is set. ``points`` are
     sensor-local meters; per-map scaling happens inside the ops. The maps,
     offsets and ``init_pose`` may carry leading batch dimensions (one per
-    back-end chain)."""
+    back-end chain). ``n_valid``: a () int tensor on the device (a host int
+    is made one), so that nothing here reads the host."""
+    n_valid = valid_count(n_valid, fine_probs.device)
     cov = torch.eye(3, dtype=torch.float32, device=fine_probs.device)
 
     def run_coarse(start_pose, cov_in):

@@ -8,9 +8,12 @@ Differences from the JAX step, which is one jitted pure function whose
 whole-map ``where(gate, new, old)`` selections are fused away and whose
 buffers are donated:
 
-- The step runs eagerly. Small state (pose, counters, last kept odometry)
-  stays on the device as tensors and is gated with ``torch.where`` exactly
-  as in JAX, so no value is fetched to decide it.
+- The step writes its state in place, the counterpart of donation: the maps
+  and the small state (pose, counters, last kept odometry) keep their
+  tensors, so a step captured in a CUDA graph (``step_graph.py``) reads
+  and writes the same memory on every replay. The small state is gated with
+  ``torch.where`` exactly as in JAX, so no value is fetched to decide it;
+  ``n_valid`` is a device scalar (a host int is made one).
 - The blocking step decides the map-update gate **once on the host**: it
   fetches the packed ``(15,)`` summary (one synchronisation per scan — the
   same fetch the engine needs anyway) and, if the gate passed, updates the
@@ -37,6 +40,7 @@ from ..models.grid_map import (
     CountMap, CountMapSpec, ProbMap, ProbMapSpec, backend_map_specs,
     make_count_map, make_prob_map, pub_map_spec, scan_match_map_specs,
 )
+from ..ops.correlative import valid_count
 from ..ops.raster import stamp_scan, stamp_scan_batch, update_count_map
 from ..ops.raycast import map_feedback_penalty
 from ..utils.geometry import pose_change_enough, predict_pose_by_odom
@@ -147,12 +151,13 @@ def init_frontend_state(spec: FrontendSpec, device) -> FrontendState:
 
 
 def frontend_step(spec: FrontendSpec, state: FrontendState,
-                  points, mask, n_valid: int, cur_odom, cur_time=None,
+                  points, mask, n_valid, cur_odom, cur_time=None,
                   timers=None, device_gate: bool = False
                   ) -> tuple[FrontendState, StepInfo]:
     """One scan through the front end (slam_processor.cpp:65-247), matching
-    against the accumulated scan-match maps. Mutates ``state`` (maps in
-    place, scalars replaced) and returns it with the step's ``StepInfo``.
+    against the accumulated scan-match maps. Writes ``state`` in place (maps
+    and scalars keep their tensors) and returns it with the step's
+    ``StepInfo``. ``n_valid``: a () int tensor on the device, or a host int.
     ``cur_time`` (a () f32 tensor, seconds since the engine's first stamp)
     adds the MoveEnough gate on the device against the last kept odometry
     and ``state.last_step_time``. ``device_gate``: update the maps under the
@@ -177,7 +182,7 @@ def _predict(spec: FrontendSpec, state: FrontendState, cur_odom):
 
 def frontend_step_windowed(spec: FrontendSpec, state: FrontendState,
                            win_points, win_masks, win_poses, win_valid,
-                           points, mask, n_valid: int, cur_odom, timers=None
+                           points, mask, n_valid, cur_odom, timers=None
                            ) -> tuple[FrontendState, StepInfo]:
     """Windowed variant (use_running_range_scan_match): the match maps are
     rebuilt from the running-range window scans ``win_* (W, ...)``,
@@ -212,7 +217,7 @@ def frontend_step_windowed(spec: FrontendSpec, state: FrontendState,
 def _frontend_core(spec: FrontendSpec, state: FrontendState,
                    match_fine_spec: ProbMapSpec, match_fine: ProbMap,
                    match_coarse_spec: ProbMapSpec, match_coarse: ProbMap,
-                   points, mask, n_valid: int, cur_odom, cur_time=None,
+                   points, mask, n_valid, cur_odom, cur_time=None,
                    timers=None, device_gate: bool = False
                    ) -> tuple[FrontendState, StepInfo]:
     """Shared front-end step: predict → match (against the given maps) →
@@ -220,6 +225,7 @@ def _frontend_core(spec: FrontendSpec, state: FrontendState,
     MoveEnough gate (slam_processor.cpp:604-616) also runs on the device
     against the last kept odometry: a move-gated scan changes nothing."""
     cfg = spec.config
+    n_valid = valid_count(n_valid, points.device)
     is_first = state.scan_index == 0
     move_ok = None
     if cur_time is not None and cfg.use_odometry and cfg.use_move_check:
@@ -311,18 +317,18 @@ def _frontend_core(spec: FrontendSpec, state: FrontendState,
             stamp_scan(spec.fine_spec, state.fine, points, mask, pose,
                        use_blur=cfg.fine_map_use_blur)
 
-    state.pose = pose
-    state.last_map_update_pose = torch.where(gate, pose,
-                                             state.last_map_update_pose)
+    # the state written in place (JAX donates it)
+    state.last_map_update_pose.copy_(torch.where(gate, pose, state.last_map_update_pose))
     if move_ok is not None:
         pen_times = torch.where(move_ok, pen_times, state.map_penalize_times)
-        state.last_step_time = torch.where(move_ok, cur_time.to(torch.float32),
-                                           state.last_step_time)
-    state.map_penalize_times = torch.where(is_first, 0, pen_times).to(torch.int32)
-    state.scan_index = state.scan_index + gate.to(torch.int32)
+        state.last_step_time.copy_(torch.where(move_ok, cur_time.to(torch.float32),
+                                               state.last_step_time))
+    state.map_penalize_times.copy_(torch.where(is_first, 0, pen_times))
+    state.scan_index.add_(gate.to(torch.int32))
     # the engine keeps a scan (and its odom) iff the map-update gate passed
-    state.last_kept_odom = torch.where(gate, cur_odom.to(torch.float32),
-                                       state.last_kept_odom)
+    state.last_kept_odom.copy_(torch.where(gate, cur_odom.to(torch.float32),
+                                           state.last_kept_odom))
+    state.pose.copy_(pose)
     info = StepInfo(pose=pose, score=score, cov=out.cov, map_updated=gate,
                     pose_accepted=pose_accepted, packed=packed, summary=summary)
     return state, info

@@ -16,8 +16,10 @@ Where the JAX package maps a single-match function over chains with
 ``vmap``, every function here is written batch-polymorphic: maps, offsets
 and poses may carry leading batch dimensions ``(...)`` (one per back-end
 chain); the scan (``points``, ``mask``, ``n_valid``) is shared by the batch.
-``n_valid`` is a host ``int`` — the engine always knows it — so the point
-subsampling rule costs no device work and no synchronisation.
+``n_valid`` is a device scalar (or a host ``int``, made one on the device by
+``valid_count``), as the JAX package traces it: the sampling step, the
+samples' validity and the score divisor are computed on the device, so that
+no value of it is fixed in a captured step and nothing is read to use it.
 """
 
 from __future__ import annotations
@@ -87,30 +89,46 @@ class CandidateGrid(NamedTuple):
     rx: torch.Tensor        # (..., A, S) rotated sample x (map cells, local)
     ry: torch.Tensor        # (..., A, S)
     svalid: torch.Tensor    # (S,) bool — sample within the scan's valid points
-    divisor: float          # score divisor (use_point_size or n_valid)
+    divisor: torch.Tensor   # () f32 score divisor (use_point_size or n_valid)
     angles: torch.Tensor    # (..., A)
     xs: torch.Tensor        # (..., N) candidate sensor x (map cells)
     ys: torch.Tensor        # (..., N)
 
 
-def _sample_indices(n_valid: int, use_point_size: int, max_samples: int,
-                    device):
-    """Reference point-subsampling rule (correlate_scan_matcher.h:560-566):
-    step = P // (use-1) when P >= 2*use else 1; iterate i*step < P; the score
-    divisor is use (or P when P < 2*use) even if the sample count differs.
-    Returns (idx (S,) int64, valid (S,) bool, divisor float)."""
-    use = use_point_size
-    n_valid = int(n_valid)
-    small = n_valid < 2 * use
-    step = 1 if small else n_valid // max(use - 1, 1)
+def valid_count(n_valid, device) -> torch.Tensor:
+    """``n_valid`` as a () int32 tensor on ``device``: a tensor is taken as
+    it is; a host ``int`` is written by one fill (no copy from host memory,
+    no synchronisation)."""
+    if isinstance(n_valid, torch.Tensor):
+        return n_valid
+    return torch.full((), int(n_valid), dtype=torch.int32, device=device)
+
+
+def sample_rule(n_valid, use: int, max_samples: int, device):
+    """Reference point-subsampling rule (correlate_scan_matcher.h:560-566)
+    on the device: step = P // (use-1) when P >= 2*use else 1; iterate
+    i*step < P. Returns (idx (S,) int64 = i*step, valid (S,) bool, small ()
+    bool: P < 2*use, n () int64: P)."""
+    n = valid_count(n_valid, device).to(torch.int64)
+    small = n < 2 * use
+    step = torch.where(small, 1, torch.div(n, max(use - 1, 1), rounding_mode="floor"))
     idx = torch.arange(max_samples, dtype=torch.int64, device=device) * step
-    valid = idx < n_valid
-    divisor = float(max(n_valid if small else use, 1))
+    return idx, idx < n, small, n
+
+
+def _sample_indices(n_valid, use_point_size: int, max_samples: int, device):
+    """The scan matcher's subsampling (``sample_rule``): the score divisor
+    is use (or P when P < 2*use) even if the sample count differs; exact in
+    f32 for any count up to 2^24. Returns (idx (S,) int64, valid (S,) bool,
+    divisor () f32), all on the device."""
+    use = use_point_size
+    idx, valid, small, n = sample_rule(n_valid, use, max_samples, device)
+    divisor = torch.clamp(torch.where(small, n, use), min=1).to(torch.float32)
     return idx, valid, divisor
 
 
 def candidate_grid(spec: ProbMapSpec, params: CorrelativeParams,
-                   points, n_valid: int, center_pose_map,
+                   points, n_valid, center_pose_map,
                    center_m=None) -> CandidateGrid:
     """Search angles, rotated samples and candidate offsets of one tier,
     in the operation order of the JAX package's ``score_candidates``.
@@ -200,21 +218,10 @@ def correlation_scores_sliced(probs, rx, ry, svalid, xs, ys,
     return total / divisor[:, None, None, None]
 
 
-_divisors: dict[tuple, torch.Tensor] = {}
-
-
-def _divisor_tensor(B: int, value: float, device) -> torch.Tensor:
-    """The (B,) f32 tensor filled with ``value``, made once per (B, value,
-    device) and kept: a tier match then launches no fill for one float.
-    Nothing writes to it."""
-    key = (B, value, device)
-    t = _divisors.get(key)
-    if t is None:
-        if len(_divisors) >= 1024:      # values are point counts: bounded anyway
-            _divisors.clear()
-        t = _divisors[key] = torch.full((B,), value, dtype=torch.float32,
-                                        device=device)
-    return t
+def _divisor_tensor(B: int, divisor) -> torch.Tensor:
+    """The kernels' (B,) f32 divisor from the () device divisor: a view for
+    B = 1, one copy otherwise."""
+    return divisor.expand(B).contiguous()
 
 
 def _batched(fn, grid: CandidateGrid, probs, default_prob: float):
@@ -224,7 +231,6 @@ def _batched(fn, grid: CandidateGrid, probs, default_prob: float):
     A, S = grid.rx.shape[-2:]
     N = grid.xs.shape[-1]
     B = math.prod(lead)
-    dev = probs.device
     scores = fn(
         probs.reshape(B, *probs.shape[-2:]).contiguous(),
         grid.rx.expand(*lead, A, S).reshape(B, A, S).contiguous(),
@@ -233,13 +239,13 @@ def _batched(fn, grid: CandidateGrid, probs, default_prob: float):
         grid.xs.expand(*lead, N).reshape(B, N).contiguous(),
         grid.ys.expand(*lead, N).reshape(B, N).contiguous(),
         float(default_prob),
-        _divisor_tensor(B, grid.divisor, dev),
+        _divisor_tensor(B, grid.divisor),
     )
     return scores.reshape(*lead, A, N, N)
 
 
 def score_candidates(spec: ProbMapSpec, params: CorrelativeParams,
-                     probs, offset, points, mask, n_valid: int,
+                     probs, offset, points, mask, n_valid,
                      center_pose_map, scores_fn=correlation_scores_plain,
                      pose_world=None):
     """Score every (angle, x, y) candidate — with the plain PyTorch version
@@ -403,7 +409,7 @@ def angular_covariance(params: CorrelativeParams, spec: ProbMapSpec,
 
 
 def correlative_scan_match(spec: ProbMapSpec, params: CorrelativeParams,
-                           probs, offset, points, mask, n_valid: int,
+                           probs, offset, points, mask, n_valid,
                            pose_world, cov_in) -> MatchResult:
     """One full tier match (BasedCorrelationScanMatch::ScanMatch,
     correlate_scan_matcher.h:784-875): score grid → penalty → tie-averaged
@@ -411,6 +417,7 @@ def correlative_scan_match(spec: ProbMapSpec, params: CorrelativeParams,
     Scores come through the kernel wrapper: the CUDA kernel on the card, the
     plain version for CPU tensors."""
     center = world_to_map_pose(offset, spec.inv_res, pose_world)
+    n_valid = valid_count(n_valid, probs.device)
     # the kernel wrapper ROBORTS_CORR_KERNEL selects: its CUDA kernel on the
     # card, the plain version on the CPU
     from .cuda.correlation import scores_fn
@@ -434,10 +441,7 @@ def correlative_scan_match(spec: ProbMapSpec, params: CorrelativeParams,
                                  best_pose_map, best_score, cov_in)
 
     # empty-scan guard (correlate_scan_matcher.h:792-795): response 0, keep pose
-    if int(n_valid) > 0:
-        response = torch.clamp(best_score, max=1.0)
-    else:
-        response = torch.zeros_like(best_score)
+    response = torch.where(n_valid > 0, torch.clamp(best_score, max=1.0), 0.0)
     accept = response > params.response_threshold
     new_world = map_to_world_pose(offset, spec.inv_res, best_pose_map)
     pose_out = torch.where(accept[..., None], new_world, pose_world)

@@ -249,7 +249,7 @@ def _run(version, probs, rx, ry, svalid, xs, ys, default_prob, divisor):
     if err != 0:
         raise RuntimeError(
             f"correlation kernel {plan.count_key}: launch failed (CUDA error {err})")
-    _count(version, plan.count_key)
+    launch.counted(_count, version, plan.count_key)
     return scores
 
 

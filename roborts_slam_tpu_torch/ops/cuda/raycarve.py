@@ -99,7 +99,7 @@ class _CheckPlan:
 
     params: object            # a _CheckParams
     params_ptr: int
-    tickets: object           # scratch of the device, kept alive here
+    tickets: object           # eager launches' scratch on the device, kept alive here
     tickets_ptr: int
     out_shape: tuple          # (B,)
     index: int
@@ -141,14 +141,31 @@ def _mark_plan(start, end, beam_mask, height: int, width: int, design: int) -> _
 
 
 def _tickets_for(dev, poses: int):
-    """The check kernel's scratch on ``dev``: a 64-bit word per pose, 0
-    between launches (zeroed here once, when made). It serves one stream at a
+    """The check kernel's scratch for eager launches on ``dev``: a 64-bit
+    word per pose, 0 between launches (zeroed here once, when made; the
+    kernel's last block puts its word back to 0). It serves one stream at a
     time."""
     held = _tickets.get(dev.index)
     if held is None or held.numel() < poses:
-        held = _tickets[dev.index] = torch.empty((max(poses, 64),), dtype=torch.int64,
-                                                 device=dev).zero_()
+        held = _tickets[dev.index] = torch.empty((max(poses, launch.TICKET_WORDS),),
+                                                 dtype=torch.int64, device=dev).zero_()
     return held
+
+
+def _tickets_ptr(plan: "_CheckPlan", dev) -> int:
+    """The scratch a launch takes: the plan's (eager), or, for a launch
+    captured into a CUDA graph, the capture's own ``launch.TICKET_WORDS`` words
+    (``launch.capture_scratch``), made and zeroed before the capture began,
+    so that a replay shares its words with no eager launch and no other
+    graph."""
+    scratch = launch.capture_scratch()
+    if scratch is None:
+        return plan.tickets_ptr
+    held = scratch.get("tickets")
+    if held is None or held.device != dev or held.numel() < plan.out_shape[0]:
+        raise RuntimeError(f"bad_ray_count: a capture needs {plan.out_shape[0]} "
+                           f"scratch words on {dev}, made before it began")
+    return held.data_ptr()
 
 
 def _check_plan(start, end, ray_ok, hits, passes, min_passthrough, occu_threshold,
@@ -216,7 +233,7 @@ def ray_mark_image(start, end, beam_mask, height: int, width: int):
     if err != 0:
         raise RuntimeError(
             f"ray_mark_image {plan.count_key}: launch failed (CUDA error {err})")
-    _count_mark(plan.count_key)
+    launch.counted(_count_mark, plan.count_key)
     return mark
 
 
@@ -226,8 +243,8 @@ def bad_ray_count(start, end, ray_ok, hits, passes, min_passthrough: float,
     cell (``passes >= min_passthrough`` and ``hits/passes >= occu_threshold``)
     with squared cell distance ``>= thr_d2`` from the endpoint.
     start (B,2) i32, end (B,S,2) i32, ray_ok (B,S) bool, hits/passes (H,W)
-    f32. Launches on one device go to one stream at a time (the kernel's
-    scratch is shared)."""
+    f32. Eager launches on one device go to one stream at a time (their
+    scratch is shared; a captured launch owns its own, ``_tickets_for``)."""
     if not start.is_cuda:
         from ..raycast import bad_rays_plain
 
@@ -238,11 +255,11 @@ def bad_ray_count(start, end, ray_ok, hits, passes, min_passthrough: float,
     out = start.new_empty(plan.out_shape)
     err = launch.call(_launcher(*_CHECK_FN), plan.index, start.data_ptr(), end.data_ptr(),
                       ray_ok.data_ptr(), hits.data_ptr(), passes.data_ptr(),
-                      out.data_ptr(), plan.tickets_ptr, plan.params_ptr)
+                      out.data_ptr(), _tickets_ptr(plan, start.device), plan.params_ptr)
     if err != 0:
         raise RuntimeError(
             f"bad_ray_count {plan.count_key}: launch failed (CUDA error {err})")
-    _count_check(plan.count_key)
+    launch.counted(_count_check, plan.count_key)
     return out
 
 

@@ -135,8 +135,10 @@ def optimize_scan_match(spec: ProbMapSpec, params: OptimizeParams,
     lead = pose0.shape[:-1]
     dev = pose0.device
     eye = 1e-9 * torch.eye(3, dtype=torch.float32, device=dev)
-    lo = torch.tensor([-max_d, -max_d, -params.max_update_angle],
-                      dtype=torch.float32, device=dev)
+    # the step's lower clamp, written by fills (a copy from host memory
+    # would wait for the device and cannot be captured)
+    lo = torch.full((3,), -max_d, dtype=torch.float32, device=dev)
+    lo[2:].fill_(-params.max_update_angle)
 
     pose = pose0
     cost = torch.zeros(lead, dtype=torch.float32, device=dev)   # start cost 0

@@ -31,6 +31,7 @@ from ..models.grid_map import (
     CountMap, CountMapSpec, LogOddsMap, ProbMap, ProbMapSpec, world_to_map_pose,
 )
 from ..utils.geometry import transform_points
+from .cuda.launch import capturing_now
 from .cuda.raycarve import ray_mark_image
 
 
@@ -94,6 +95,9 @@ def _stamp_footprint(spec: ProbMapSpec, dev):
     wait for the device."""
     key = (spec, str(dev))
     if key not in _STAMP_FOOTPRINTS:
+        if capturing_now(torch.device(dev)):
+            raise RuntimeError("stamp_scan: the blur footprint is made inside a capture "
+                               "(run the step once first)")
         h = spec.kernel_half
         offs = np.stack(np.meshgrid(np.arange(-h, h + 1), np.arange(-h, h + 1),
                                     indexing="ij"), -1).reshape(-1, 2)

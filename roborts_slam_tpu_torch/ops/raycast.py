@@ -19,26 +19,23 @@ import torch
 
 from ..models.grid_map import CountMap, CountMapSpec, world_to_map_pose
 from ..utils.geometry import transform_points
+from .correlative import sample_rule
 from .cuda.raycarve import bad_ray_count
 from .raster import _cell_round
 
 
-def _sample_beams(points, mask, n_valid: int, check_point_num: int):
+def _sample_beams(points, mask, n_valid, check_point_num: int):
     """Beam subsampling with the scan matcher's striding rule
-    (occu_grid_map.h:362-369). ``n_valid`` is a host int."""
-    use = check_point_num
-    n_valid = int(n_valid)
-    small = n_valid < 2 * use
-    step = 1 if small else n_valid // max(use - 1, 1)
-    max_samples = 2 * use
-    sidx = torch.arange(max_samples, dtype=torch.int64, device=points.device) * step
-    svalid = sidx < n_valid
+    (occu_grid_map.h:362-369), on the device (``correlative.sample_rule``):
+    ``n_valid`` is a device scalar or a host int."""
+    sidx, svalid, _, _ = sample_rule(n_valid, check_point_num, 2 * check_point_num,
+                                     points.device)
     sidx = torch.clamp(sidx, 0, points.shape[0] - 1)
     svalid = svalid & mask[sidx]
     return sidx, svalid
 
 
-def check_rays(spec: CountMapSpec, pose_map, points, mask, n_valid: int,
+def check_rays(spec: CountMapSpec, pose_map, points, mask, n_valid,
                check_point_num: int, bound_tolerance: float):
     """The rays ``map_feedback_penalty`` checks for poses in map
     coordinates ``pose_map (...,3)`` (``world_to_map_pose``):
@@ -59,7 +56,7 @@ def check_rays(spec: CountMapSpec, pose_map, points, mask, n_valid: int,
 
 
 def map_feedback_penalty(spec: CountMapSpec, cmap: CountMap,
-                         points, mask, n_valid: int, pose_world,
+                         points, mask, n_valid, pose_world,
                          check_point_num: int, bound_tolerance: float,
                          penalty_gain: float,
                          min_passthrough: float, occu_threshold: float):

@@ -25,13 +25,18 @@ Each helper takes and returns f32 tensors on any device and gives the same
 bits on the CPU and on the card: ``fma_f32`` forms the product exactly in
 float64 and rounds the float64 sum to f32 (never a contraction the compiler
 may or may not make), and the sums are sequential folds of elementwise
-operations. The plain path and the kernel path both call them.
+operations. The plain path and the kernel path both call them. Inside a
+step captured into a CUDA graph they launch only device work: the
+reciprocals are host constants of the specs, and ``tie_sums``' tables are
+made at a step's first, eager call (a capture that would make one raises).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .cuda.launch import capturing_now
 
 # tie terms folded in XLA's order (more: the plain sums). On leg 3's and leg
 # 4's logs at full width six cover 99 % of the tiers' tie sets (most hold 1-3)
@@ -96,6 +101,9 @@ def _grid_tables(A: int, Nx: int, Ny: int, device) -> tuple:
     in flat order) and its window of ``XLA_REDUCE_WINDOW`` angles (n,)."""
     key = (A, Nx, Ny, str(device))
     if key not in _TABLES:
+        if capturing_now(torch.device(device)):
+            raise RuntimeError(f"tie_sums: the tables of a {(A, Nx, Ny)} grid are made "
+                               "inside a capture (run the step once first)")
         f = np.arange(A * Nx * Ny)
         a, kx, ky = f // (Nx * Ny), f // Ny % Nx, f % Ny
         cols = np.stack([np.zeros_like(f), 1 + kx, 1 + Nx + ky, 1 + Nx + Ny + a,

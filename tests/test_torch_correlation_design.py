@@ -221,8 +221,14 @@ def test_sliced_sums_stay_near_the_plain_sums(step, S):
 
 
 def test_divisor_tensor_is_kept_per_batch_value_and_device():
-    a = tcr._divisor_tensor(3, 200.0, torch.device("cpu"))
-    assert a is tcr._divisor_tensor(3, 200.0, torch.device("cpu"))
-    assert a.tolist() == [200.0] * 3 and a.dtype == torch.float32
-    assert tcr._divisor_tensor(1, 200.0, torch.device("cpu")).shape == (1,)
-    assert tcr._divisor_tensor(3, 57.0, torch.device("cpu")).tolist() == [57.0] * 3
+    """The kernels' (B,) divisor is made on the divisor's device from the ()
+    device divisor of ``_sample_indices`` (no value is copied from the
+    host): a view for B = 1."""
+    one = tcr._sample_indices(torch.tensor(300, dtype=torch.int32), 100, 200, "cpu")[2]
+    a = tcr._divisor_tensor(3, one)
+    assert a.tolist() == [100.0] * 3 and a.dtype == torch.float32
+    assert a.device == one.device and a.is_contiguous()
+    b = tcr._divisor_tensor(1, one)
+    assert b.shape == (1,) and b.data_ptr() == one.data_ptr()
+    small = tcr._sample_indices(torch.tensor(57, dtype=torch.int32), 100, 200, "cpu")[2]
+    assert tcr._divisor_tensor(3, small).tolist() == [57.0] * 3
