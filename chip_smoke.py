@@ -34,9 +34,12 @@ The main paths:
   After it, ``main_path_async_drained``: the same engine through the API
   over leg 3's whole log with the worker's queue drained after every
   ``process`` call, where the JAX package holds its asynchronous bar
-  (``chain_dispatches <= fused_misses + spa_solves + 4``); leg 5 prints
-  that bar, the worker's longest pass and its largest queue, and does not
-  hold it: how far the worker lags there is a matter of timing.
+  (``chain_dispatches <= fused_misses + spa_solves + 4``) and the fused
+  hits are asserted, as the JAX test asserts them
+  (tests/test_engine_features.py:630-642); leg 5 prints that bar, its fused
+  hits and misses, the worker's lag at its fused steps, longest pass and
+  largest queue, and holds neither: how far the worker lags there is a
+  matter of timing.
 
 Every engine runs the fused front-end+chain step, the default (the chain
 batch of the chains predicted for a scan rides its step). Two phases hold
@@ -102,13 +105,24 @@ against the single solve) and ``log_odds`` (the log-odds map over leg 3's
 kept scans, the carve kernel against the plain path on the CPU). One card
 cannot show a multi-GPU number: these phases show the mechanics only.
 
-``spa_on_device`` (after them, on leg 3's final graph) shows the pose-graph
-solve staying on the card: the engine's solve makes one host read (its
-result), ``lm_solve`` none under ``set_sync_debug_mode("error")``, one CUDA
-graph capture and 49 replays a solve; the graph-replayed solve is timed
-beside the eager masked one and the dense one and held against the eager
-one under deterministic sums (1e-4 m, 1e-5 relative cost) and against the
-dense optimum (5 %, 0.05 m).
+``spa_on_device`` (after them, on leg 3's final graph, padded to JAX's
+buckets) shows the pose-graph solve staying on the card: the engine's solve
+makes one host read (its result), ``lm_solve`` none under
+``set_sync_debug_mode("error")``; a solve replays its bucket's program 50
+times, or captures it (at most once a bucket) and replays it 49; the
+graph-replayed solve is timed beside the eager masked one and the dense one
+and held against the eager one under deterministic sums (1e-4 m, 1e-5
+relative cost) and against the dense optimum (5 %, 0.05 m).
+
+``closure_program`` (right after it, on leg 3's final state) holds the loop
+closure's programs: the solve program with conditional nodes (where this
+PyTorch has them; it prints so where not) against the masked program under
+deterministic sums, bit for bit, with the LM iterations and CG steps each
+executed and their seconds; two corrections in a row through
+``Backend.force_optimize``, the second making no capture in the solve or
+the rebuild, each with its ``solve_and_correct_s``; and the correction
+rebuild's program (one carve per bucket slot) against the same rebuild
+launched eagerly, every map bit for bit.
 
 The last phase, ``bench_headline``, is ``python -m roborts_slam_tpu_torch
 bench`` (``bench/headline.py``): the two correlation kernels held against the
@@ -460,7 +474,9 @@ def parallel_phases(eng3, rr_config, rr_fspec, rr_bspec, dev, acct, backend=None
     # start from those poses perturbed (seed 0; node 0 kept), off the optimum
     # as a closure's solve starts
     graph_leg3_opt = eng3.backend.graph.as_solver_data(eng3.store.poses_array(), dev)
-    start_noise = np.random.default_rng(0).normal(0, [0.05, 0.05, 0.01], (n3, 3))
+    # the graph is padded to JAX's buckets: the padding nodes stay at zero
+    start_noise = np.zeros((graph_leg3_opt.poses.shape[0], 3))
+    start_noise[:n3] = np.random.default_rng(0).normal(0, [0.05, 0.05, 0.01], (n3, 3))
     start_noise[0] = 0
     graph_leg3 = graph_leg3_opt._replace(
         poses=graph_leg3_opt.poses + torch.as_tensor(start_noise, **f32))
@@ -1039,12 +1055,17 @@ def step_graph_phase(SlamEngine, dev, legs, headline_w, out_dir) -> dict:
 
 def step_path(diag) -> dict:
     """What ``engine.diag`` says of the per-scan steps: the path ("graph"
-    or why eager), CUDA graph captures and replays by program, eager
-    steps."""
+    or why eager), CUDA graph captures and replays by program (the loop
+    closure's "solve_*" and "rebuild_*" programs too), eager steps; the loop
+    closure's solve and rebuild paths, the last solve's LM iterations and CG
+    steps and the seconds spent capturing the closure's programs."""
     return {"step_graph": diag.step_graph, "graph_captures": diag.graph_captures,
             "graph_replays": diag.graph_replays, "eager_steps": diag.eager_steps,
             "captures_by_key": dict(diag.captures_by_key),
-            "replays_by_key": dict(diag.replays_by_key)}
+            "replays_by_key": dict(diag.replays_by_key),
+            "closure_path": diag.closure_path, "rebuild_path": diag.rebuild_path,
+            "solve_lm_iters": diag.solve_lm_iters, "solve_cg_steps": diag.solve_cg_steps,
+            "closure_capture_s": diag.closure_capture_s}
 
 
 def pose_diff(a, b):
@@ -1151,7 +1172,9 @@ def spa_on_device(eng3, dev, report3) -> dict:
 
     back, n = eng3.backend, len(eng3.store)
     final = back.graph.as_solver_data(eng3.store.poses_array(), dev)
-    noise = np.random.default_rng(0).normal(0, [0.05, 0.05, 0.01], (n, 3))
+    # padded to JAX's buckets: the padding nodes stay at zero
+    noise = np.zeros((final.poses.shape[0], 3))
+    noise[:n] = np.random.default_rng(0).normal(0, [0.05, 0.05, 0.01], (n, 3))
     noise[0] = 0
     start = final._replace(poses=final.poses + torch.as_tensor(noise, dtype=torch.float32,
                                                                 device=dev))
@@ -1175,6 +1198,7 @@ def spa_on_device(eng3, dev, report3) -> dict:
     said = {"nodes": int(final.poses.shape[0]), "edges": int(final.edge_ij.shape[0]),
             "leg3_spa_solves": report3["spa_solves"],
             "leg3_solve_and_correct_s": report3["solve_and_correct_s"]}
+    program_existed = spa.program_key(final) in spa._programs
     kept = (back.on_corrections, back.num_solves, back.solve_time_s)
     back.on_corrections = None
     try:
@@ -1184,7 +1208,11 @@ def spa_on_device(eng3, dev, report3) -> dict:
     packing = "roborts_slam_tpu_torch/backend/pose_graph.py:"
     reads = [w for w in where if not w.startswith(packing)]
     said["engine_solve"].update(host_reads=len(reads), host_reads_where=reads,
-                                copies_in=len(where) - len(reads))
+                                copies_in=len(where) - len(reads),
+                                program_existed=program_existed,
+                                program=back.last_solve["program"],
+                                lm_iters=back.last_solve["lm_iters"],
+                                cg_steps=back.last_solve["cg_steps"])
     torch.cuda.set_sync_debug_mode("error")
     try:
         spa.lm_solve(start)
@@ -1206,13 +1234,193 @@ def spa_on_device(eng3, dev, report3) -> dict:
     emit({"phase": "spa_on_device", **said})
     eng = said["engine_solve"]
     assert eng["host_reads"] == 1 and "backend/processor.py:" in reads[0], eng
-    assert eng["captures"] == 1 and eng["replays"] == 49, eng
-    assert said["replayed"]["captures"] == 1 and said["eager_masked"]["captures"] == 0, said
+    # a solve captures its bucket's program at most once, none once it exists
+    assert eng["captures"] <= 1 and eng["replays"] == 50 - eng["captures"], eng
+    assert eng["captures"] == 0 or not program_existed, eng
+    assert said["replayed"]["captures"] == 0 and said["replayed"]["replays"] == 50, said
+    assert said["eager_masked"]["captures"] == 0, said
     det = said["replayed_vs_eager_deterministic"]
     assert det["max_pose_diff"] <= 1e-4 and det["cost_rel_diff"] <= 1e-5, det
     d = said["dense_vs_replayed_from_optimum"]
     assert d["cost_rel_diff"] < 0.05 and d["max_pose_diff"] < 0.05, d
     assert all(bool(torch.isfinite(t).all()) for t in (*rep[:2], *eager[:2], *dense))
+    return said
+
+
+@contextlib.contextmanager
+def fused_lags(SlamEngine):
+    """The back end's lag at every fused step made inside the block: kept
+    scans not yet in its graph when the step's chains are predicted (the
+    asynchronous worker's lag)."""
+    lags = []
+
+    def wrapper_of(orig):
+        def inner(self, *a, **kw):
+            out = orig(self, *a, **kw)
+            if out is not None:
+                lags.append(len(self.store) - self.backend.graph.num_vertices)
+            return out
+        return inner
+
+    with patched(SlamEngine, "_prepare_fused", wrapper_of):
+        yield lags
+
+
+def closure_program(eng3, dev) -> dict:
+    """The phase ``closure_program`` on leg 3's final state: the loop
+    closure's two programs. (1) From the final poses perturbed as in
+    ``spa_on_device``, under deterministic sums: the solve program with
+    conditional nodes, where this PyTorch captures them, against the
+    masked program, bit for bit, each with the LM iterations and CG steps
+    it executed (read from its packed result), its host seconds (until the
+    call returns), seconds to a synchronise and device milliseconds (CUDA
+    events), timed at its second call. (2) Two corrections in a row through
+    ``Backend.force_optimize``: the programs each captured and replayed (by
+    ``diag``'s keys and by counting ``CUDAGraph.capture_begin``), its
+    ``solve_and_correct_s`` (host clock) and seconds to a synchronise; the
+    second must capture nothing. (3) The correction rebuild's program
+    against the same rebuild launched eagerly on the same padded store:
+    pub hits and passes, coarse and fine maps bit for bit, both timed.
+    (4) ``warm_backend`` at leg 3's buckets keeps every map and counter.
+    (5) What a first closure in a bucket pays: each program made anew."""
+    from roborts_slam_tpu_torch.backend import spa
+    from roborts_slam_tpu_torch.engine import _rebuild_all_maps
+    from roborts_slam_tpu_torch.models.grid_map import CountMap, ProbMap
+
+    back, diag, n = eng3.backend, eng3.diag, len(eng3.store)
+    said = {"closure_path": diag.closure_path, "rebuild_path": diag.rebuild_path,
+            "conditional_nodes": spa.conditional_nodes(), "torch": torch.__version__,
+            "cuda": torch.version.cuda}
+    if not said["conditional_nodes"]:
+        said["conditional_nodes_missing"] = (
+            "torch.cuda.CUDAGraph has no begin_capture_to_if_node in this PyTorch: "
+            "the solve program replays the masked iteration")
+    final = back.graph.as_solver_data(eng3.store.poses_array(), dev)
+    noise = np.zeros((final.poses.shape[0], 3))
+    noise[:n] = np.random.default_rng(0).normal(0, [0.05, 0.05, 0.01], (n, 3))
+    noise[0] = 0
+    start = final._replace(poses=final.poses + torch.as_tensor(noise, dtype=torch.float32,
+                                                                device=dev))
+
+    def solved(conditional):
+        out = {}
+        for call in ("first", "second"):
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            t = time.perf_counter()
+            packed, prog = spa.solve_packed(start, conditional=conditional)
+            host = time.perf_counter() - t
+            ev[1].record()
+            torch.cuda.synchronize()
+            got = packed.cpu()
+            out[call] = {"captured": prog.last == "capture", "host_seconds": host,
+                         "seconds": time.perf_counter() - t,
+                         "device_ms": ev[0].elapsed_time(ev[1]),
+                         "lm_iters": int(got[-2]), "cg_steps": int(got[-1])}
+        return packed, out
+
+    with deterministic():
+        masked, said["masked_program"] = solved(False)
+        if said["conditional_nodes"]:
+            cond, said["if_program"] = solved(True)
+            said["if_vs_masked_bit_equal"] = torch.equal(cond, masked)
+
+    for k in (1, 2):
+        before = (dict(diag.captures_by_key), dict(diag.replays_by_key), back.solve_time_s,
+                  diag.closure_capture_s)
+        torch.cuda.synchronize()
+        with graph_calls() as calls:
+            t = time.perf_counter()
+            back.force_optimize()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        delta = lambda now, was: {key: v - was.get(key, 0) for key, v in now.items()
+                                  if v != was.get(key, 0)}
+        said[f"correction_{k}"] = {
+            "solve_and_correct_s": back.solve_time_s - before[2], "seconds": seconds,
+            "captures_by_key": delta(diag.captures_by_key, before[0]),
+            "replays_by_key": delta(diag.replays_by_key, before[1]),
+            "graph_captures": calls["captures"], "graph_replays": calls["replays"],
+            "capture_s": diag.closure_capture_s - before[3],
+            "lm_iters": diag.solve_lm_iters, "cg_steps": diag.solve_cg_steps}
+
+    st, cfg, fs = eng3.state, eng3.config, eng3.fspec
+    torch.cuda.synchronize()
+    with eng3._state_lock, graph_calls() as calls:
+        t = time.perf_counter()
+        eng3._rebuild_maps()
+        torch.cuda.synchronize()
+        program_s = time.perf_counter() - t
+    fresh = (CountMap(torch.empty_like(st.pub.hits), torch.empty_like(st.pub.passes),
+                      st.pub.offset),
+             ProbMap(torch.empty_like(st.coarse.probs), st.coarse.offset),
+             ProbMap(torch.empty_like(st.fine.probs), st.fine.offset))
+    arrays = eng3.store.all_arrays()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _rebuild_all_maps(fs.pub_spec, fs.coarse_spec, fs.fine_spec, *fresh, *arrays,
+                      cfg.map_update_free_factor, cfg.map_update_occu_factor,
+                      int(cfg.map_min_passthrough), bool(cfg.coarse_map_use_blur),
+                      bool(cfg.fine_map_use_blur))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t
+    pairs = {"pub_hits": (st.pub.hits, fresh[0].hits),
+             "pub_passes": (st.pub.passes, fresh[0].passes),
+             "coarse": (st.coarse.probs, fresh[1].probs), "fine": (st.fine.probs, fresh[2].probs)}
+    said["rebuild"] = {"scans": n, "bucket": int(arrays[0].shape[0]),
+                       "program_replays": calls["replays"], "program_captures": calls["captures"],
+                       "program_seconds": program_s, "eager_seconds": eager_s,
+                       "bit_equal": {k: torch.equal(a, b) for k, (a, b) in pairs.items()},
+                       "pub_hits_sum": float(st.pub.hits.sum())}
+    # warm_backend on this state: the programs of leg 3's buckets exist, so
+    # it replays them (a rebuild bucket past the mirror is skipped), and it
+    # leaves every map and counter as it found them
+    planes = (st.pub.hits, st.pub.passes, st.coarse.probs, st.fine.probs)
+    kept = ([t.clone() for t in planes], back.num_solves, back.solve_time_s)
+    t = time.perf_counter()
+    eng3.warm_backend(solver_buckets=(512,), match_buckets=(), rebuild_buckets=(512, 1024),
+                      calibrate=False)
+    said["warm_backend"] = {
+        "seconds": time.perf_counter() - t,
+        "maps_kept": all(torch.equal(a, b) for a, b in zip(kept[0], planes)),
+        "counters_kept": (back.num_solves, back.solve_time_s) == kept[1:]}
+    # what a first closure in a bucket pays: each program made anew on this
+    # state (the rebuild's capture and replay; the solve's eager first
+    # iteration, capture and 49 replays), beside a call that replays
+    with eng3._state_lock:
+        eng3._rebuild_programs.pop(said["rebuild"]["bucket"]).release()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng3._rebuild_maps()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        rebuilt = eng3._rebuild_programs[said["rebuild"]["bucket"]]
+    spa._programs.pop(spa.program_key(final), None)
+    cost = {"rebuild_first_call_s": first_s, "rebuild_capture_s": rebuilt.last_capture_s}
+    for call in ("solve_first_call", "solve_replayed_call"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, prog = spa.solve_packed(final)
+        torch.cuda.synchronize()
+        cost[f"{call}_s"] = time.perf_counter() - t
+        cost[f"{call}_capture_s"] = prog.last_capture_s
+    said["first_closure_costs"] = cost
+    emit({"phase": "closure_program", **said})
+    second = said["correction_2"]
+    assert second["graph_captures"] == 0 and not any(
+        k.startswith(("solve_", "rebuild_")) for k in second["captures_by_key"]), second
+    assert any(k.startswith("solve_") for k in second["replays_by_key"]) and any(
+        k.startswith("rebuild_") for k in second["replays_by_key"]), second
+    assert not said["masked_program"]["second"]["captured"], said["masked_program"]
+    if said["conditional_nodes"]:
+        assert said["if_vs_masked_bit_equal"], said
+        got = said["if_program"]["second"]
+        assert got["cg_steps"] < 100 * got["lm_iters"], got
+    assert said["warm_backend"]["maps_kept"] and said["warm_backend"]["counters_kept"], said
+    rb = said["rebuild"]
+    assert rb["program_captures"] == 0 and rb["program_replays"] == 1, rb
+    assert all(rb["bit_equal"].values()) and rb["pub_hits_sum"] > 0, rb
     return said
 
 
@@ -2275,6 +2483,7 @@ def main() -> int:
         reset_counts=reset_counts, read_counts=read_counts, read_shapes=read_shapes,
         shapes_said=shapes_said, account=account, relist=relist_rr_k1, ctx=ctx_rr1))
     spa_on_device(eng3, dev, report3)
+    closure_program(eng3, dev)
     del eng3
 
     # ---- phase 7b: leg 3's log and profile through the API in the JAX
@@ -2548,7 +2757,8 @@ def main() -> int:
     # (the worker's chain batch sizes vary with its drains)
     relist_rr_k1(LEG5, ("corr", "mark", "check"),
                  lambda key: key in optional or "chain_b" in key)
-    with corr_kernel(1), worker_passes(SlamEngine) as passes5:
+    with corr_kernel(1), worker_passes(SlamEngine) as passes5, \
+            fused_lags(SlamEngine) as lags5:
         eng5, report5, shapes5 = run_cli(
             ["run", rslg_path, "--config", rr_yaml, "--async", "--out-map", out_map,
              "--checkpoint", end_ckpt], "leg 5", setup=set_hooks)
@@ -2568,6 +2778,13 @@ def main() -> int:
         # the JAX package's bar for its asynchronous engine, as it stands
         # here: held on the drained run below, where the JAX test holds it
         async_bar=report5["fused_misses"] + report5["spa_solves"] + 4,
+        # kept scans not yet in the worker's graph at each fused step: the
+        # lag that decides whether a step's predicted chains are the ones
+        # the worker finds (a hit)
+        backend_lag_at_fused_steps={
+            "steps": len(lags5), "min": min(lags5, default=None),
+            "median": float(np.median(lags5)) if lags5 else None,
+            "max": max(lags5, default=None)},
         **passes_said(passes5))
     emit({"phase": LEG5, "corr_kernel": 1, **report5})
     assert report5["entry"] == "run_stream(NativeScanStream)", report5["entry"]
@@ -2580,9 +2797,13 @@ def main() -> int:
     assert batches5 > 0 and report5["launches_in_chain_matches"]["correlation"] \
         == 3 * batches5, report5["launches_in_chain_matches"]
     # the worker takes the chain rows from its queue; how many separate
-    # batches it makes beyond its misses depends on how far it lags (the
-    # JAX package's bar is held on the drained run below)
-    assert report5["fused_steps"] > 0 and report5["fused_hits"] > 0, report5
+    # batches it makes beyond its misses, and how many of the rows it takes
+    # (the fused hits), depend on how far it lags. The JAX test drains the
+    # worker after every scan because a lagging worker "only lowers the fused
+    # hit rate in production but makes this test's premise nondeterministic"
+    # (tests/test_engine_features.py:632-635): its bar and the fused hits are
+    # held on the drained run below
+    assert report5["fused_steps"] > 0, report5
     assert report5["loop_closures"] >= 1, "leg 5 closed no loop"
     assert report5["ate_rmse_m"] <= max(2 * report3["ate_rmse_m"], 0.15), report5["ate_rmse_m"]
     kept5 = report5["kept"]

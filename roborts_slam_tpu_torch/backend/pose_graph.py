@@ -28,6 +28,15 @@ import threading
 import numpy as np
 
 
+def solver_bucket(count: int) -> int:
+    """The JAX package's shape bucket of a solve or a rebuild: the smallest
+    ``64·2^k`` that holds ``count`` rows."""
+    b = 64
+    while b < count:
+        b *= 2
+    return b
+
+
 def _locked(method):
     """Run ``method`` under the graph's lock, so that each public operation
     is atomic against the other thread; discovery racing the worker then
@@ -306,25 +315,43 @@ class PoseGraph:
         return int(ids[np.argmin(d2)])
 
     @_locked
-    def as_solver_data(self, poses: np.ndarray, device):
+    def as_solver_data(self, poses: np.ndarray, device, pad_n: int | None = None,
+                       pad_e: int | None = None):
         """Pack the graph into PoseGraphData tensors on ``device`` for the
-        SPA solver. Unpadded: there is no compilation to amortise."""
+        SPA solver, padded as the JAX package pads it: nodes and edges each
+        to ``64·2^k`` (or ``pad_n`` / ``pad_e``), padding nodes masked at
+        zero poses, padding edges masked as (0, 0) with zero measurements
+        and identity information. One shape per bucket is what lets a solve
+        reuse its bucket's program (``spa.SolveProgram``). On the card the
+        arrays go through pinned memory without waiting for the device."""
         import torch
 
         from .spa import PoseGraphData
 
         n = self.num_vertices
         e = len(self.edges)
-        eij = np.zeros((e, 2), np.int64)
-        erel = np.zeros((e, 3), np.float32)
-        einfo = np.zeros((e, 3, 3), np.float32)
+        pn = pad_n or solver_bucket(n)
+        pe = pad_e or solver_bucket(max(e, 1))
+        p = np.zeros((pn, 3), np.float32)
+        p[:n] = poses[:n]
+        nm = np.zeros(pn, bool)
+        nm[:n] = True
+        eij = np.zeros((pe, 2), np.int64)
+        erel = np.zeros((pe, 3), np.float32)
+        einfo = np.tile(np.eye(3, dtype=np.float32), (pe, 1, 1))
+        em = np.zeros(pe, bool)
         for k, edge in enumerate(self.edges):
             eij[k] = (edge.source, edge.target)
             erel[k] = edge.rel_pose
             einfo[k] = edge.information
-        t = lambda a: torch.as_tensor(a, device=device)
-        return PoseGraphData(
-            poses=t(np.asarray(poses[:n], np.float32)),
-            node_mask=t(np.ones(n, bool)), edge_ij=t(eij), edge_rel=t(erel),
-            edge_info=t(einfo), edge_mask=t(np.ones(e, bool)),
-        )
+            em[k] = True
+        device = torch.device(device)
+
+        def t(a):
+            host = torch.from_numpy(a)
+            if device.type != "cuda":
+                return host.to(device)
+            return host.pin_memory().to(device, non_blocking=True)
+
+        return PoseGraphData(poses=t(p), node_mask=t(nm), edge_ij=t(eij),
+                             edge_rel=t(erel), edge_info=t(einfo), edge_mask=t(em))

@@ -54,7 +54,7 @@ from ..ops.raster import stamp_scan_batch
 from ..ops.raycast import map_feedback_penalty
 from ..step_graph import StepGraph, signature
 from .pose_graph import PoseGraph
-from .spa import solve_pose_graph
+from .spa import solve_packed
 
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
@@ -279,6 +279,9 @@ class Backend:
         self._programs: dict = {}
         self.capture = False
         self.diag = None
+        # the latest SPA solve: its program's key ("solve_<nodes>x<edges>",
+        # None where it ran eagerly), LM iterations and CG steps executed
+        self.last_solve: dict | None = None
         # bucket -> peak bytes of one chain batch (calibrate_chain_batch), and
         # of the fused step at that bucket (the engine's warm_backend): the
         # fused step holds the front end's temporaries beside the batch's
@@ -599,16 +602,43 @@ class Backend:
             self._solve_and_correct()
 
     def _solve_and_correct(self):
+        """One SPA solve of the whole graph and its corrections. The graph is
+        padded to JAX's buckets, so on the card every solve after the first
+        in a bucket replays that bucket's program (``spa.SolveProgram``);
+        the solve's poses and its LM iteration and CG step counts come back
+        in its one host read."""
         self.num_solves += 1
         t0 = time.perf_counter()
+        n = self.graph.num_vertices
         data = self.graph.as_solver_data(self.store.poses_array(),
                                          self.store.device)
-        poses, _cost, _iters = solve_pose_graph(data)
+        packed, prog = solve_packed(data)
         # the solve stays on the device until here: its one host read
-        corrected = poses.cpu().numpy().astype(np.float64)[: self.graph.num_vertices]
+        out = packed.cpu().numpy()
+        pn = data.poses.shape[0]
+        corrected = out[:3 * pn].reshape(pn, 3).astype(np.float64)[:n]
+        self.last_solve = {"program": None if prog is None else prog.name,
+                           "lm_iters": int(out[3 * pn + 1]),
+                           "cg_steps": int(out[3 * pn + 2])}
+        self.count_solve(prog)
+        if self.diag is not None:
+            self.diag.solve_lm_iters = self.last_solve["lm_iters"]
+            self.diag.solve_cg_steps = self.last_solve["cg_steps"]
         if self.on_corrections is not None:
             self.on_corrections(corrected)
         self.solve_time_s += time.perf_counter() - t0
+
+    def count_solve(self, prog):
+        """Count a solve's program ``prog`` (None: an eager solve) in the
+        engine's ``diag``: a call that replayed it, the capture it made and
+        the capture's seconds."""
+        d = self.diag
+        if d is None or prog is None:
+            return
+        d.replays_by_key[prog.name] = d.replays_by_key.get(prog.name, 0) + 1
+        if prog.last == "capture":
+            d.captures_by_key[prog.name] = d.captures_by_key.get(prog.name, 0) + 1
+            d.closure_capture_s += prog.last_capture_s
 
     def graph_info(self):
         """GetGraphInfo equivalent: (node xy array, edge endpoint pairs)."""

@@ -67,10 +67,11 @@ import numpy as np
 import torch
 
 from .config import SlamConfig
-from .backend.pose_graph import PoseGraph
+from .backend.pose_graph import PoseGraph, solver_bucket
 from .backend.processor import (
     Backend, BackendSpec, fused_cursor_step, fused_frontend_chain_step,
 )
+from .backend.spa import closure_path
 from .frontend.processor import (
     FrontendSpec, FrontendState, frontend_step, frontend_step_windowed,
     init_frontend_state,
@@ -112,19 +113,22 @@ def _stamp_match_maps(coarse_spec, fine_spec, coarse_off, fine_off,
     return coarse, fine
 
 
-def _rebuild_all_maps(pub_spec, coarse_spec, fine_spec,
-                      pub_off, coarse_off, fine_off,
-                      pts, msk, poses, valid, free_f, occu_f,
-                      first_scan_extra: int, coarse_blur: bool,
+def _rebuild_all_maps(pub_spec, coarse_spec, fine_spec, pub: CountMap,
+                      coarse: ProbMap, fine: ProbMap, pts, msk, poses, valid,
+                      free_f, occu_f, first_scan_extra: int, coarse_blur: bool,
                       fine_blur: bool):
     """The full CorrectPoseAndMap rebuild (pub + coarse + fine,
-    slam_processor.cpp:350-366) from every stored scan."""
-    pub = rebuild_count_map(pub_spec, pub_off, pts, msk, poses, valid,
-                            free_f, occu_f, first_scan_extra=first_scan_extra)
-    coarse, fine = _stamp_match_maps(coarse_spec, fine_spec, coarse_off,
-                                     fine_off, pts, msk, poses, valid,
-                                     coarse_blur, fine_blur)
-    return pub, coarse, fine
+    slam_processor.cpp:350-366) from every stored scan, written into the
+    three maps' planes in place: the pub planes zeroed and carved one batch
+    slot at a time, the match maps reset to unknown and stamped. ``valid``
+    masks the padding slots of a batch padded to JAX's bucket, which change
+    no bit of any map."""
+    rebuild_count_map(pub_spec, pub.offset, pts, msk, poses, valid, free_f, occu_f,
+                      first_scan_extra=first_scan_extra, out=pub)
+    for spec, pmap, blur in ((coarse_spec, coarse, coarse_blur),
+                             (fine_spec, fine, fine_blur)):
+        pmap.probs.fill_(spec.default_prob)
+        stamp_scan_batch(spec, pmap, pts, msk, poses, valid, use_blur=blur)
 
 
 def _upload(dst: torch.Tensor, src: np.ndarray):
@@ -364,14 +368,22 @@ class ScanStore:
         with self._lock:
             return self.gather(self.running_ids)
 
-    def all_arrays(self):
-        """Every stored scan as device tensors ``(points (n,P,2), masks
-        (n,P), poses (n,3), valid (n,))`` — views of the device mirror."""
+    def all_arrays(self, bucket: int | None = None):
+        """Every stored scan as device tensors ``(points (B,P,2), masks
+        (B,P), poses (B,3), valid (B,))`` padded as the JAX package's
+        ``all_arrays`` pads them, to ``B = 64·2^k >= n`` (or ``bucket``):
+        views of the device mirror's first B rows (its capacity, ``256·2^j
+        >= n``, holds the bucket) with ``valid`` false past the stored
+        scans."""
         with self._lock:
             pts, msk, poses = self.device_arrays()
             n = len(self)
-            valid = torch.ones((n,), dtype=torch.bool, device=self.device)
-            return pts[:n], msk[:n], poses[:n], valid
+            b = bucket or solver_bucket(n)
+            if b > self._dev_cap:
+                raise ValueError(f"all_arrays: bucket {b} past the mirror's "
+                                 f"{self._dev_cap} rows")
+            valid = torch.arange(b, device=self.device) < n
+            return pts[:b], msk[:b], poses[:b], valid
 
 
 @dataclasses.dataclass
@@ -402,6 +414,17 @@ class EngineDiagnostics:
     # ("batch_b<B>")
     captures_by_key: dict = dataclasses.field(default_factory=dict)
     replays_by_key: dict = dataclasses.field(default_factory=dict)
+    # the loop closure's programs (JAX's solve and rebuild per bucket): the
+    # solve's path ("graph+if", "graph" or "eager: <why>") and the correction
+    # rebuild's ("graph" or "eager: <why>"); their captures and replays are
+    # counted above by program ("solve_<nodes>x<edges>": one a solve,
+    # "rebuild_<bucket>": one a correction); LM iterations and CG steps the
+    # last solve executed; seconds spent capturing either program
+    closure_path: str = ""
+    rebuild_path: str = ""
+    solve_lm_iters: int = 0
+    solve_cg_steps: int = 0
+    closure_capture_s: float = 0.0
 
 
 class SlamEngine:
@@ -498,6 +521,13 @@ class SlamEngine:
         self.diag.step_graph = self._step_path(step_graph)
         self.backend.capture = self.diag.step_graph == "graph"
         self.backend.diag = self.diag
+        # the correction rebuild's programs by bucket (``_rebuild_program``),
+        # captured on the card unless ``step_graph`` is off; the solve's
+        # programs are the back end's (``spa.solve_program``)
+        self._rebuild_programs: dict = {}
+        self.diag.closure_path = closure_path(self.device)
+        self.diag.rebuild_path = ("eager: cpu tensors" if self.device.type != "cuda"
+                                  else "graph" if step_graph else "eager: step_graph=False")
         # the packed summary of the latest step, as read (float64)
         self.last_summary: np.ndarray | None = None
 
@@ -1484,16 +1514,8 @@ class SlamEngine:
             bbox = self.store.scans_world_bbox()
             if bbox is not None:
                 self._grow_pub_to_bbox(bbox[0], bbox[1])
-            pts, msk, poses, valid = self.store.all_arrays()
-            cfg = self.config
+            self._rebuild_maps()
             st = self.state
-            self._install_maps(*_rebuild_all_maps(
-                self.fspec.pub_spec, self.fspec.coarse_spec, self.fspec.fine_spec,
-                st.pub.offset, st.coarse.offset, st.fine.offset,
-                pts, msk, poses, valid,
-                cfg.map_update_free_factor, cfg.map_update_occu_factor,
-                int(cfg.map_min_passthrough), bool(cfg.coarse_map_use_blur),
-                bool(cfg.fine_map_use_blur)))
             # carry the corrected latest pose forward (deviation from the
             # reference, which leaves current_sensor_pose_ stale; carrying the
             # correction is strictly more robust). Mirror through float32 so the
@@ -1512,6 +1534,65 @@ class SlamEngine:
             for i, (t, _) in enumerate(self.trajectory):
                 self.trajectory[i] = (t, self.store.poses[i].copy())
             self._publish_pub_arrays()
+
+    def _rebuild_program(self, b: int) -> StepGraph:
+        """The correction rebuild of every map from the store's first ``b``
+        rows (JAX's bucket), as one program over a staged vector holding the
+        count of stored scans: it reads the device mirror's rows and writes
+        the state's three maps in place (``_rebuild_all_maps``), one carve a
+        slot. On the card it is captured at its first call (the steps have
+        run every operation in it before) and replayed from then on; made
+        anew where the specs or a buffer it reads or writes changed (a pub
+        growth, a mirror doubling): the key holds the bucket, the specs and
+        their addresses and shapes, as ``_program`` keys the steps."""
+        st, store, cfg = self.state, self.store, self.config
+        pub, coarse, fine = st.pub, st.coarse, st.fine
+        rows = store.device_arrays()
+        specs = (self.fspec.pub_spec, self.fspec.coarse_spec, self.fspec.fine_spec)
+        key = (b, specs, signature([*pub, *coarse, *fine, *rows]))
+        prog = self._rebuild_programs.get(b)
+        if prog is not None and prog.key == key:
+            return prog
+        if prog is not None:
+            prog.release()
+        pts, msk, poses = (r[:b] for r in rows)
+        dev = self.device
+
+        def fn(staged):
+            valid = torch.arange(b, device=dev) < staged[0]
+            _rebuild_all_maps(*specs, pub, coarse, fine, pts, msk, poses, valid,
+                              cfg.map_update_free_factor, cfg.map_update_occu_factor,
+                              int(cfg.map_min_passthrough), bool(cfg.coarse_map_use_blur),
+                              bool(cfg.fine_map_use_blur))
+            return valid
+
+        prog = StepGraph(fn, 1, dev, capture=self.diag.rebuild_path == "graph",
+                         capture_first=True)
+        prog.key = key
+        self._rebuild_programs[b] = prog
+        return prog
+
+    def _rebuild_maps(self, bucket: int | None = None):
+        """Rebuild every map from the stored scans at their current poses
+        through the program of the store's bucket (or ``bucket``), counting
+        its capture or replay in ``diag``. Callers hold the state lock."""
+        store = self.store
+        with store._lock:
+            n = len(store)
+            b = bucket or solver_bucket(n)
+            store.all_arrays(b)                   # the mirror's rows up to date
+            prog = self._rebuild_program(b)
+            host = torch.tensor([n], dtype=torch.float32)
+            if prog.staged.is_cuda:
+                host = host.pin_memory()
+            prog.staged.copy_(host, non_blocking=True)
+            prog()
+        d, name = self.diag, f"rebuild_{b}"
+        if prog.last != "eager":
+            d.replays_by_key[name] = d.replays_by_key.get(name, 0) + 1
+        if prog.last == "capture":
+            d.captures_by_key[name] = d.captures_by_key.get(name, 0) + 1
+            d.closure_capture_s += prog.last_capture_s
 
     # ---- fixed-rate pose stream (PublishTransform thread analog,
     #      roborts_slam_node.cpp:178-196) ----
@@ -1657,21 +1738,25 @@ class SlamEngine:
                      rebuild_buckets: tuple[int, ...] = (64, 128, 256),
                      calibrate: bool = True):
         """Do once, before streaming, what the back end's first calls would
-        do the first time: on the card, build the kernels and (``calibrate``)
+        do the first time, as the JAX package's ``warm_backend`` compiles
+        its programs: on the card, build the kernels and (``calibrate``)
         measure each chain bucket's peak memory, which sets the batch size
         (``Backend.calibrate_chain_batch``); run one chain batch at each of
         ``match_buckets`` (default: every bucket up to that size), one fused
         step at each of them (the pipelined step at the pipeline's bucket
         instead, where it runs), recording the fused step's peak memory on
-        the card; one SPA solve of the live graph and one rebuild of every
-        map from the live store. Results are discarded and no engine, store
-        or graph state changes (the back end's counters are put back), so a
-        run continued after warming equals the unwarmed run bit for bit.
-        Call it after the first scan.
-
-        ``solver_buckets`` and ``rebuild_buckets`` are the JAX package's and
-        are ignored: PyTorch compiles nothing per shape."""
-        from .backend.spa import solve_pose_graph
+        the card; make the solve's program at each of ``solver_buckets``
+        (nodes ``bn``, edges ``bn`` and ``2·bn``, those the live graph has
+        not outgrown) by solving the live graph padded to it; and make the
+        correction rebuild's program at each of ``rebuild_buckets`` that
+        holds the live store and that the store's device mirror holds (a
+        larger one comes with a mirror doubling, which makes a new program
+        anyway) by rebuilding from the live store. Results are discarded
+        and no engine, store or graph state changes (the back end's counters
+        are put back, the maps restored; the programs' captures are counted
+        in ``diag``), so a run continued after warming equals the unwarmed
+        run bit for bit. Call it after the first scan."""
+        from .backend.spa import solve_packed
 
         if len(self.store) == 0:
             raise RuntimeError("warm_backend needs >= 1 processed scan")
@@ -1700,20 +1785,21 @@ class SlamEngine:
                         for b in match_buckets:
                             if b <= step:
                                 self._warm_fused(b, cursor=False)
-            graph = back.graph
-            if graph.num_vertices > 1:
-                solve_pose_graph(graph.as_solver_data(self.store.poses_array(),
-                                                      self.device))
-            cfg = self.config
+            graph, poses = back.graph, self.store.poses_array()
+            for bn in solver_buckets:
+                for be in (bn, 2 * bn):
+                    if bn >= graph.num_vertices and be >= len(graph.edges):
+                        back.count_solve(solve_packed(graph.as_solver_data(
+                            poses, self.device, pad_n=bn, pad_e=be))[1])
             with self._state_lock:
                 st = self.state
-                _rebuild_all_maps(
-                    self.fspec.pub_spec, self.fspec.coarse_spec,
-                    self.fspec.fine_spec, st.pub.offset, st.coarse.offset,
-                    st.fine.offset, *self.store.all_arrays(),
-                    cfg.map_update_free_factor, cfg.map_update_occu_factor,
-                    int(cfg.map_min_passthrough),
-                    bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
+                planes = (st.pub.hits, st.pub.passes, st.coarse.probs, st.fine.probs)
+                kept = [t.clone() for t in planes]
+                for b in rebuild_buckets:
+                    if len(self.store) <= b <= self.store._dev_cap:
+                        self._rebuild_maps(b)
+                for t, k in zip(planes, kept):
+                    t.copy_(k)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         finally:

@@ -282,38 +282,55 @@ def update_count_map(spec: CountMapSpec, cmap: CountMap, points, mask,
     false the mark image is still computed and zeros are added, so the
     counts keep their bits, with nothing read on the host."""
     mark = scan_mark_image(spec, cmap.offset, points, mask, pose_world)
-    touched = (mark > 0).to(torch.float32)
-    occu = (mark == 2).to(torch.float32)
+    return _add_marks(cmap, mark, free_factor, occu_factor, gate)
+
+
+def _add_marks(cmap: CountMap, mark, free_factor, occu_factor, gate=None) -> CountMap:
+    """Add one scan's mark image to the counts in place (CountCellFunctions,
+    grid_map_cell.h:94-111): each increment where the mark says, zero
+    elsewhere."""
     occu_inc = 1.0 + occu_factor
     free_inc = 1.0 + free_factor
     if gate is not None:
         on = gate.to(torch.float32)
         occu_inc, free_inc = occu_inc * on, free_inc * on
-    cmap.hits.add_(occu * occu_inc)
-    cmap.passes.add_(touched * free_inc)
+    cmap.hits.add_(torch.where(mark == 2, occu_inc, 0.0))
+    cmap.passes.add_(torch.where(mark > 0, free_inc, 0.0))
     return cmap
 
 
 def rebuild_count_map(spec: CountMapSpec, cmap_offset, points_b, mask_b,
                       poses_b, scan_valid, free_factor, occu_factor,
-                      first_scan_extra: int = 0) -> CountMap:
+                      first_scan_extra: int = 0, out: CountMap | None = None) -> CountMap:
     """Rebuild the pub map from scratch over a batch of scans.
 
-    Count updates are additive and commute; the rebuild is a Python loop of
+    Count updates are additive and commute; the rebuild is a loop of
     per-scan mark images folded into fresh hit/pass planes (one mark image
-    per scan, so per-scan idempotence holds) — the equivalent of
+    per scan, so per-scan idempotence holds), one carve per batch slot as
+    JAX's ``lax.scan`` runs one per padded scan: a slot that ``scan_valid``
+    masks carves no beam and adds zeros, which leave the counts' bits as
+    they are. The cells of every slot's rays are computed for the batch at
+    once (elementwise, so each slot's are those of a scan alone), which
+    leaves the carve and six operations a slot. The equivalent of
     CorrectPoseAndMap's InitMapWithRangeVec rebuild
     (slam_processor.cpp:350-356), including the quirk of re-applying scan 0
-    ``min_passthrough`` extra times (:351-353)."""
+    ``min_passthrough`` extra times (:351-353). ``out``: a map whose planes
+    are zeroed and rebuilt in place (its offset is the one used)."""
     dev = points_b.device
-    out = CountMap(
-        hits=torch.zeros((spec.height, spec.width), dtype=torch.float32, device=dev),
-        passes=torch.zeros((spec.height, spec.width), dtype=torch.float32, device=dev),
-        offset=torch.as_tensor(cmap_offset, dtype=torch.float32, device=dev),
-    )
+    if out is None:
+        out = CountMap(
+            hits=torch.zeros((spec.height, spec.width), dtype=torch.float32, device=dev),
+            passes=torch.zeros((spec.height, spec.width), dtype=torch.float32, device=dev),
+            offset=torch.as_tensor(cmap_offset, dtype=torch.float32, device=dev),
+        )
+    else:
+        out.hits.zero_()
+        out.passes.zero_()
+    start, end, beams = _scan_cells(spec.inv_res, out.offset, points_b,
+                                    mask_b & scan_valid[:, None], poses_b)
     for i in range(points_b.shape[0]):
-        update_count_map(spec, out, points_b[i], mask_b[i] & scan_valid[i],
-                         poses_b[i], free_factor, occu_factor)
+        mark = ray_mark_image(start[i], end[i], beams[i], spec.height, spec.width)
+        _add_marks(out, mark, free_factor, occu_factor)
     for _ in range(first_scan_extra):
         update_count_map(spec, out, points_b[0], mask_b[0], poses_b[0],
                          free_factor, occu_factor)

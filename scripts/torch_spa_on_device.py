@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
 """The pose-graph solve on the card: the graph-replayed solve beside the
-eager masked one and the dense one, on synthetic loop graphs.
+eager masked one and the dense one, on synthetic loop graphs; and the loop
+closure of legs 3 and 5, a parent tree against this one in turns.
 
-    python3 scripts/torch_spa_on_device.py [--root DIR] [--nodes 512,1024] [--tag NAME]
+    python3 scripts/torch_spa_on_device.py [--nodes 512,1024] [--tag NAME]
+                                           [--root PARENT [--legs leg3,leg5]]
 
 Per graph (``parallel.multihost.make_synthetic_loop_graph``, seed 0: an
 odometry ring with a quarter as many loop edges, its poses noisy) one JSON
 line: the seconds of each solve (host clock to the end of a
 ``torch.cuda.synchronize``) and of the host's part alone (until the call
-returns), LM iterations, CUDA graph captures and replays a solve, implicit
-synchronisations inside ``lm_solve`` (``set_sync_debug_mode("error")``
-raises on the first), the graph-replayed solve against the eager masked one
-under deterministic sums (bit for bit expected) and in the default mode
-(atomic sums), the solve run on a worker thread while this thread keeps
-launching and reading (the engine's asynchronous back end), and the card's
-name and power limit. ``--root``: the checkout whose
-``roborts_slam_tpu_torch`` runs (default: this one); a tree whose
-``lm_solve`` has no ``replay`` argument (the loop that reads on the host)
-gets its solve and the dense one timed only, so that two trees are compared
-in one call on one card, in turns.
+returns), LM iterations, CUDA graph captures and replays a solve (the first
+solve at a shape captures its program, every later one replays it),
+implicit synchronisations inside ``lm_solve`` (``set_sync_debug_mode
+("error")`` raises on the first), the graph-replayed solve against the
+eager masked one under deterministic sums (bit for bit expected) and in the
+default mode (atomic sums), the solve run on a worker thread while this
+thread keeps launching and reading (the engine's asynchronous back end),
+and the card's name and power limit.
+
+``--root PARENT``: a parent's unpacked tree. The legs (``--legs``: ``leg3``,
+chip_smoke's leg 3 through the API, ``configs/real_robot.yaml``, the second
+correlation kernel, blocking; ``leg5``, the same log with the back end on
+its worker thread and the first kernel, as leg 5 runs it) then run for the
+parent and for this tree in turns (parent, change, change, parent), each
+run in a process of its own that imports that tree's package, on the
+corridor-loop log simulated once here. One JSON line a run: ms per fed scan
+(first scan to ``finish()`` and a synchronise), ``solve_and_correct_s``
+(the back end's host clock over its solves and corrections),
+``worker_longest_pass_s`` (the longest back-end pass, the worker's stall in
+``leg5``), the closures and solves, and what ``diag`` says of the closure's
+programs where the tree has them.
 """
 
 from __future__ import annotations
@@ -37,19 +49,109 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 
+def run_leg(tree: str, leg: str, log_path: str, tag: str) -> dict:
+    """One run of ``leg`` with the package of ``tree`` (imported by the
+    caller) on the saved corridor log."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from roborts_slam_tpu_torch import SlamEngine, load_config
+    from roborts_slam_tpu_torch.models.scan import LaserModel
+
+    d = np.load(log_path)
+    laser = LaserModel.from_array(d["laser"])
+    cfg = load_config(str(Path(tree) / "configs" / "real_robot.yaml"))
+    os.environ["ROBORTS_CORR_KERNEL"] = "2" if leg == "leg3" else "1"
+    passes = []
+    orig = SlamEngine._backend_pass
+
+    def timed_pass(self, batch):
+        t = time.perf_counter()
+        try:
+            return orig(self, batch)
+        finally:
+            passes.append(time.perf_counter() - t)
+
+    SlamEngine._backend_pass = timed_pass
+    eng = SlamEngine(cfg, laser, synchronous_backend=leg == "leg3")
+    n = len(d["times"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(n):
+        eng.process(d["ranges"][i], d["odom"][i], float(d["times"][i]))
+    eng.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    back, diag = eng.backend, eng.diag
+    return {"leg": leg, "tag": tag, "tree": tree, "scans_fed": n, "kept": len(eng.store),
+            "ms_per_scan_fed": 1e3 * wall / n, "loop_closures": back.num_loop_closures,
+            "spa_solves": back.num_solves, "solve_and_correct_s": back.solve_time_s,
+            "worker_longest_pass_s": max(passes, default=0.0), "backend_passes": len(passes),
+            "fused_hits": back.num_fused_hits, "fused_misses": back.num_fused_misses,
+            **{k: getattr(diag, k) for k in (
+                "closure_path", "rebuild_path", "solve_lm_iters", "solve_cg_steps",
+                "closure_capture_s") if hasattr(diag, k)},
+            "programs": {k: v for k, v in getattr(diag, "captures_by_key", {}).items()
+                         if k.startswith(("solve_", "rebuild_"))},
+            "program_replays": {k: v for k, v in getattr(diag, "replays_by_key", {}).items()
+                                if k.startswith(("solve_", "rebuild_"))}}
+
+
+def legs_in_turns(args, card: str) -> int:
+    """The legs of ``--root`` and of this tree in turns, a process a run."""
+    import tempfile
+
+    import numpy as np
+
+    from roborts_slam_tpu_torch.bench.parity import corridor_loop_log
+
+    loop = corridor_loop_log()
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = str(Path(tmp) / "corridor_loop.npz")
+        np.savez(log_path, laser=loop.laser.to_array(), ranges=loop.ranges,
+                 odom=loop.odom, times=loop.times)
+        trees = {"parent": str(Path(args.root).resolve()), "change": str(HERE)}
+        ok = True
+        for leg in [x for x in args.legs.split(",") if x]:
+            for tag in ("parent", "change", "change", "parent"):
+                proc = subprocess.run(
+                    [sys.executable, str(Path(__file__).resolve()), "--leg-run", leg,
+                     "--tree", trees[tag], "--log", log_path, "--tag", tag],
+                    capture_output=True, text=True, timeout=600)
+                lines = proc.stdout.strip().splitlines()
+                if proc.returncode != 0 or not lines:
+                    ok = False
+                    print(json.dumps({"leg": leg, "tag": tag, "device": card,
+                                      "error": proc.stderr[-2000:]}), flush=True)
+                    continue
+                rec = json.loads(lines[-1])
+                rec["device"] = card
+                print(json.dumps(rec), flush=True)
+    return 0 if ok else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--root", default=None)
+    ap.add_argument("--legs", default="leg3,leg5")
     ap.add_argument("--nodes", default="512,1024")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--leg-run", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tree", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--log", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    sys.path.insert(0, str(Path(args.root).resolve()))
+    sys.path.insert(0, str(Path(args.tree or HERE).resolve()))
 
     import torch
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    if args.leg_run:
+        print(json.dumps(run_leg(args.tree, args.leg_run, args.log, args.tag)), flush=True)
+        return 0
     from roborts_slam_tpu_torch.backend import spa
     from roborts_slam_tpu_torch.parallel.multihost import make_synthetic_loop_graph
 
@@ -57,6 +159,9 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+    print(json.dumps({"device": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+                      "closure_path": spa.closure_path(dev)
+                      if hasattr(spa, "closure_path") else None}), flush=True)
     masked = "replay" in inspect.signature(spa.lm_solve).parameters
     calls = {"capture_begin": 0, "replay": 0}
 
@@ -99,7 +204,7 @@ def main() -> int:
                 "bit_equal": torch.equal(pa, pb) and torch.equal(ca, cb)}
 
     ok = True
-    for n in (int(v) for v in args.nodes.split(",")):
+    for n in (int(v) for v in args.nodes.split(",") if v):
         g = make_synthetic_loop_graph(n, device=dev)
         line = {"tag": args.tag, "device": card, "torch": torch.__version__,
                 "cuda": torch.version.cuda, "nodes": n,
@@ -159,6 +264,8 @@ def main() -> int:
             line["ok"] = good
             ok = ok and good
         print(json.dumps(line), flush=True)
+    if args.root is not None:
+        ok = legs_in_turns(args, card) == 0 and ok
     return 0 if ok else 1
 
 
