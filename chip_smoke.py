@@ -115,14 +115,14 @@ and held against the eager one under deterministic sums (1e-4 m, 1e-5
 relative cost) and against the dense optimum (5 %, 0.05 m).
 
 ``closure_program`` (right after it, on leg 3's final state) holds the loop
-closure's programs: the solve program with conditional nodes (where this
-PyTorch has them; it prints so where not) against the masked program under
-deterministic sums, bit for bit, with the LM iterations and CG steps each
-executed and their seconds; two corrections in a row through
-``Backend.force_optimize``, the second making no capture in the solve or
-the rebuild, each with its ``solve_and_correct_s``; and the correction
-rebuild's program (one carve per bucket slot) against the same rebuild
-launched eagerly, every map bit for bit.
+closure's programs: leg 3's lone closure rebuilt its maps eagerly (no
+rebuild capture); the solve program's first and second calls, with the LM
+iterations and CG steps the masked loop counted and their seconds; two
+corrections in a row through ``Backend.force_optimize``, the second making
+no capture in the solve or the rebuild, each with its
+``solve_and_correct_s``; and the correction rebuild's program (one carve
+per bucket slot) against the eager rebuild from the exact rows, every map
+bit for bit.
 
 The last phase, ``bench_headline``, is ``python -m roborts_slam_tpu_torch
 bench`` (``bench/headline.py``): the two correlation kernels held against the
@@ -1057,14 +1057,15 @@ def step_path(diag) -> dict:
     """What ``engine.diag`` says of the per-scan steps: the path ("graph"
     or why eager), CUDA graph captures and replays by program (the loop
     closure's "solve_*" and "rebuild_*" programs too), eager steps; the loop
-    closure's solve and rebuild paths, the last solve's LM iterations and CG
-    steps and the seconds spent capturing the closure's programs."""
+    closure's solve and rebuild paths, the corrections rebuilt eagerly, the
+    last solve's LM iterations and CG steps and the seconds spent capturing
+    the closure's programs."""
     return {"step_graph": diag.step_graph, "graph_captures": diag.graph_captures,
             "graph_replays": diag.graph_replays, "eager_steps": diag.eager_steps,
             "captures_by_key": dict(diag.captures_by_key),
             "replays_by_key": dict(diag.replays_by_key),
             "closure_path": diag.closure_path, "rebuild_path": diag.rebuild_path,
-            "solve_lm_iters": diag.solve_lm_iters, "solve_cg_steps": diag.solve_cg_steps,
+            "eager_rebuilds": diag.eager_rebuilds, "solve_lm_iters": diag.solve_lm_iters, "solve_cg_steps": diag.solve_cg_steps,
             "closure_capture_s": diag.closure_capture_s}
 
 
@@ -1268,67 +1269,63 @@ def fused_lags(SlamEngine):
 
 def closure_program(eng3, dev) -> dict:
     """The phase ``closure_program`` on leg 3's final state: the loop
-    closure's two programs. (1) From the final poses perturbed as in
-    ``spa_on_device``, under deterministic sums: the solve program with
-    conditional nodes, where this PyTorch captures them, against the
-    masked program, bit for bit, each with the LM iterations and CG steps
-    it executed (read from its packed result), its host seconds (until the
-    call returns), seconds to a synchronise and device milliseconds (CUDA
-    events), timed at its second call. (2) Two corrections in a row through
+    closure's two programs, and whether this PyTorch could capture
+    conditional nodes (the solve replays the masked iteration either way).
+    (0) Leg 3's one closure rebuilt its maps
+    eagerly from the exact rows and captured no rebuild program (a
+    rebuild's capture waits for a bucket's second correction). (1) From the
+    final poses perturbed as in ``spa_on_device``, the solve program's first
+    and second calls: the LM iterations and CG steps the masked loop
+    counted (read from its packed result), host seconds (until the call
+    returns), seconds to a synchronise and device milliseconds (CUDA
+    events). (2) Two corrections in a row through
     ``Backend.force_optimize``: the programs each captured and replayed (by
     ``diag``'s keys and by counting ``CUDAGraph.capture_begin``), its
     ``solve_and_correct_s`` (host clock) and seconds to a synchronise; the
     second must capture nothing. (3) The correction rebuild's program
-    against the same rebuild launched eagerly on the same padded store:
-    pub hits and passes, coarse and fine maps bit for bit, both timed.
-    (4) ``warm_backend`` at leg 3's buckets keeps every map and counter.
-    (5) What a first closure in a bucket pays: each program made anew."""
+    against the eager rebuild from the exact stored rows (what a first
+    correction runs): pub hits and passes, coarse and fine maps bit for
+    bit, both timed. (4) ``warm_backend`` at leg 3's buckets keeps every
+    map and counter. (5) What the corrections in a bucket pay: the rebuild
+    made anew (an eager call, the capture, a replay) and the solve's
+    program made anew (a capture, a replay)."""
     from roborts_slam_tpu_torch.backend import spa
     from roborts_slam_tpu_torch.engine import _rebuild_all_maps
     from roborts_slam_tpu_torch.models.grid_map import CountMap, ProbMap
 
     back, diag, n = eng3.backend, eng3.diag, len(eng3.store)
     said = {"closure_path": diag.closure_path, "rebuild_path": diag.rebuild_path,
-            "conditional_nodes": spa.conditional_nodes(), "torch": torch.__version__,
-            "cuda": torch.version.cuda}
-    if not said["conditional_nodes"]:
-        said["conditional_nodes_missing"] = (
-            "torch.cuda.CUDAGraph has no begin_capture_to_if_node in this PyTorch: "
-            "the solve program replays the masked iteration")
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "if_nodes_in_torch": hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node"),
+            "solve_iteration": "masked: every CG step runs (no conditional-node path)",
+            "leg3_eager_rebuilds": diag.eager_rebuilds,
+            "leg3_rebuild_captures": {k: v for k, v in diag.captures_by_key.items()
+                                      if k.startswith("rebuild_")}}
     final = back.graph.as_solver_data(eng3.store.poses_array(), dev)
     noise = np.zeros((final.poses.shape[0], 3))
     noise[:n] = np.random.default_rng(0).normal(0, [0.05, 0.05, 0.01], (n, 3))
     noise[0] = 0
     start = final._replace(poses=final.poses + torch.as_tensor(noise, dtype=torch.float32,
                                                                 device=dev))
-
-    def solved(conditional):
-        out = {}
-        for call in ("first", "second"):
-            torch.cuda.synchronize()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            t = time.perf_counter()
-            packed, prog = spa.solve_packed(start, conditional=conditional)
-            host = time.perf_counter() - t
-            ev[1].record()
-            torch.cuda.synchronize()
-            got = packed.cpu()
-            out[call] = {"captured": prog.last == "capture", "host_seconds": host,
-                         "seconds": time.perf_counter() - t,
-                         "device_ms": ev[0].elapsed_time(ev[1]),
-                         "lm_iters": int(got[-2]), "cg_steps": int(got[-1])}
-        return packed, out
-
-    with deterministic():
-        masked, said["masked_program"] = solved(False)
-        if said["conditional_nodes"]:
-            cond, said["if_program"] = solved(True)
-            said["if_vs_masked_bit_equal"] = torch.equal(cond, masked)
+    said["solve_program"] = {}
+    for call in ("first", "second"):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t = time.perf_counter()
+        packed, prog = spa.solve_packed(start)
+        host = time.perf_counter() - t
+        ev[1].record()
+        torch.cuda.synchronize()
+        got = packed.cpu()
+        said["solve_program"][call] = {
+            "captured": prog.last == "capture", "host_seconds": host,
+            "seconds": time.perf_counter() - t, "device_ms": ev[0].elapsed_time(ev[1]),
+            "lm_iters": int(got[-2]), "cg_steps": int(got[-1])}
 
     for k in (1, 2):
         before = (dict(diag.captures_by_key), dict(diag.replays_by_key), back.solve_time_s,
-                  diag.closure_capture_s)
+                  diag.closure_capture_s, diag.eager_rebuilds)
         torch.cuda.synchronize()
         with graph_calls() as calls:
             t = time.perf_counter()
@@ -1341,6 +1338,7 @@ def closure_program(eng3, dev) -> dict:
             "solve_and_correct_s": back.solve_time_s - before[2], "seconds": seconds,
             "captures_by_key": delta(diag.captures_by_key, before[0]),
             "replays_by_key": delta(diag.replays_by_key, before[1]),
+            "eager_rebuilds": diag.eager_rebuilds - before[4],
             "graph_captures": calls["captures"], "graph_replays": calls["replays"],
             "capture_s": diag.closure_capture_s - before[3],
             "lm_iters": diag.solve_lm_iters, "cg_steps": diag.solve_cg_steps}
@@ -1356,7 +1354,7 @@ def closure_program(eng3, dev) -> dict:
                       st.pub.offset),
              ProbMap(torch.empty_like(st.coarse.probs), st.coarse.offset),
              ProbMap(torch.empty_like(st.fine.probs), st.fine.offset))
-    arrays = eng3.store.all_arrays()
+    arrays = eng3.store.all_arrays(n)
     torch.cuda.synchronize()
     t = time.perf_counter()
     _rebuild_all_maps(fs.pub_spec, fs.coarse_spec, fs.fine_spec, *fresh, *arrays,
@@ -1368,9 +1366,10 @@ def closure_program(eng3, dev) -> dict:
     pairs = {"pub_hits": (st.pub.hits, fresh[0].hits),
              "pub_passes": (st.pub.passes, fresh[0].passes),
              "coarse": (st.coarse.probs, fresh[1].probs), "fine": (st.fine.probs, fresh[2].probs)}
-    said["rebuild"] = {"scans": n, "bucket": int(arrays[0].shape[0]),
+    bucket = int(eng3.store.all_arrays()[0].shape[0])
+    said["rebuild"] = {"scans": n, "bucket": bucket,
                        "program_replays": calls["replays"], "program_captures": calls["captures"],
-                       "program_seconds": program_s, "eager_seconds": eager_s,
+                       "program_seconds": program_s, "eager_exact_rows_seconds": eager_s,
                        "bit_equal": {k: torch.equal(a, b) for k, (a, b) in pairs.items()},
                        "pub_hits_sum": float(st.pub.hits.sum())}
     # warm_backend on this state: the programs of leg 3's buckets exist, so
@@ -1385,42 +1384,51 @@ def closure_program(eng3, dev) -> dict:
         "seconds": time.perf_counter() - t,
         "maps_kept": all(torch.equal(a, b) for a, b in zip(kept[0], planes)),
         "counters_kept": (back.num_solves, back.solve_time_s) == kept[1:]}
-    # what a first closure in a bucket pays: each program made anew on this
-    # state (the rebuild's capture and replay; the solve's eager first
-    # iteration, capture and 49 replays), beside a call that replays
+    # what the corrections in a bucket pay, each program made anew on this
+    # state: the rebuild's first call (eager, exact rows), second (capture
+    # and replay) and third (replay); the solve's first (an eager first
+    # iteration, the capture and 49 replays) and second (50 replays)
+    cost = {}
     with eng3._state_lock:
-        eng3._rebuild_programs.pop(said["rebuild"]["bucket"]).release()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng3._rebuild_maps()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t
-        rebuilt = eng3._rebuild_programs[said["rebuild"]["bucket"]]
+        eng3._rebuild_programs.pop(bucket).release()
+        eng3._rebuild_seen.pop(bucket, None)
+        for call in ("first", "second", "third"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng3._rebuild_maps()
+            torch.cuda.synchronize()
+            prog = eng3._rebuild_programs.get(bucket)
+            cost[f"rebuild_{call}_call_s"] = time.perf_counter() - t
+            cost[f"rebuild_{call}_call"] = prog.last if prog is not None else "eager"
+            cost[f"rebuild_{call}_capture_s"] = prog.last_capture_s if prog else 0.0
     spa._programs.pop(spa.program_key(final), None)
-    cost = {"rebuild_first_call_s": first_s, "rebuild_capture_s": rebuilt.last_capture_s}
-    for call in ("solve_first_call", "solve_replayed_call"):
+    for call in ("first", "second"):
         torch.cuda.synchronize()
         t = time.perf_counter()
         _, prog = spa.solve_packed(final)
         torch.cuda.synchronize()
-        cost[f"{call}_s"] = time.perf_counter() - t
-        cost[f"{call}_capture_s"] = prog.last_capture_s
-    said["first_closure_costs"] = cost
+        cost[f"solve_{call}_call_s"] = time.perf_counter() - t
+        cost[f"solve_{call}_call"] = prog.last
+        cost[f"solve_{call}_capture_s"] = prog.last_capture_s
+    said["bucket_costs"] = cost
     emit({"phase": "closure_program", **said})
+    assert said["leg3_eager_rebuilds"] >= 1 and not said["leg3_rebuild_captures"], said
     second = said["correction_2"]
     assert second["graph_captures"] == 0 and not any(
         k.startswith(("solve_", "rebuild_")) for k in second["captures_by_key"]), second
     assert any(k.startswith("solve_") for k in second["replays_by_key"]) and any(
         k.startswith("rebuild_") for k in second["replays_by_key"]), second
-    assert not said["masked_program"]["second"]["captured"], said["masked_program"]
-    if said["conditional_nodes"]:
-        assert said["if_vs_masked_bit_equal"], said
-        got = said["if_program"]["second"]
-        assert got["cg_steps"] < 100 * got["lm_iters"], got
+    assert second["eager_rebuilds"] == 0, second
+    sp = said["solve_program"]
+    assert not sp["second"]["captured"], sp
+    assert 0 < sp["second"]["cg_steps"] <= 100 * sp["second"]["lm_iters"], sp
     assert said["warm_backend"]["maps_kept"] and said["warm_backend"]["counters_kept"], said
     rb = said["rebuild"]
     assert rb["program_captures"] == 0 and rb["program_replays"] == 1, rb
     assert all(rb["bit_equal"].values()) and rb["pub_hits_sum"] > 0, rb
+    assert [cost[f"rebuild_{c}_call"] for c in ("first", "second", "third")] == [
+        "eager", "capture", "replay"], cost
+    assert [cost[f"solve_{c}_call"] for c in ("first", "second")] == ["capture", "replay"], cost
     return said
 
 

@@ -24,9 +24,8 @@ On the card an unsharded solve runs the ``SolveProgram`` of its padded
 shape (``PoseGraph.as_solver_data`` pads to JAX's buckets), the counterpart
 of JAX's one jitted program per bucket: one LM iteration captured into a
 CUDA graph at the first solve in a bucket and replayed by every later one.
-Where PyTorch captures conditional nodes, the captured iteration runs only
-while the solve has not converged and each CG step only while its loop's
-test holds, so the device stops where JAX's ``while_loop``s stop.
+Every one of the ``max_iters`` × ``cg_iters`` masked steps runs on the
+device; the steps JAX's loops would take are counted beside them.
 """
 
 from __future__ import annotations
@@ -186,12 +185,24 @@ def _pcg(lin: _Linearization, data: PoseGraphData, b, damping, iters: int,
     ``inv_ex``: the LU inverse of ``inv`` without its synchronising error
     check (``jnp.linalg.inv`` never raises either). Returns ``x`` and the
     number of steps taken (() int32)."""
-    precond, matvec, going = _pcg_operators(lin, data, b, damping, tol, reduce_fn)
+    pinv, _ = torch.linalg.inv_ex(_block_diag(lin, data, damping, reduce_fn))
+
+    def precond(v):
+        return torch.einsum("nij,nj->ni", pinv, v) * lin.gauge
+
+    def matvec(v):
+        return _hvp(lin, data, v, reduce_fn) + damping * (v * lin.gauge)
+
     x = torch.zeros_like(b)
     r = b
     z = precond(r)
     p = z
     rz = torch.sum(r * z)
+    bnorm = torch.clamp(torch.sqrt(torch.sum(b * b)), min=1e-12)
+
+    def going(r):
+        return torch.sqrt(torch.sum(r * r)) > tol * bnorm
+
     active = going(r)
     steps = torch.zeros((), dtype=torch.int32, device=b.device)
     for i in range(iters):
@@ -209,63 +220,6 @@ def _pcg(lin: _Linearization, data: PoseGraphData, b, damping, iters: int,
         r = torch.where(active, r_new, r)
         rz = torch.where(active, rz_new, rz)
     return x, steps
-
-
-def _pcg_operators(lin: _Linearization, data: PoseGraphData, b, damping, tol: float,
-                   reduce_fn=None):
-    """The preconditioner, the damped product and JAX's loop test of a CG
-    solve of (H + λI) x = b."""
-    pinv, _ = torch.linalg.inv_ex(_block_diag(lin, data, damping, reduce_fn))
-    bnorm = torch.clamp(torch.sqrt(torch.sum(b * b)), min=1e-12)
-
-    def precond(v):
-        return torch.einsum("nij,nj->ni", pinv, v) * lin.gauge
-
-    def matvec(v):
-        return _hvp(lin, data, v, reduce_fn) + damping * (v * lin.gauge)
-
-    def going(r):
-        return torch.sqrt(torch.sum(r * r)) > tol * bnorm
-
-    return precond, matvec, going
-
-
-def _pcg_in_place(lin: _Linearization, data: PoseGraphData, b, damping, iters: int,
-                  tol: float, steps, when):
-    """``_pcg`` with each step a body that updates ``x``, ``r``, ``p``,
-    ``rz`` in place and runs only where its flag holds: ``when(active,
-    step)``, a conditional node of a CUDA graph (``when`` from
-    ``_if_node``; the CPU tests read the flag on the host instead).
-    A step that runs leaves what the masked ``_pcg`` leaves, bit for bit;
-    a step that does not run leaves everything as it was, as ``torch.where``
-    does there. The flag of the next step is computed at the end of the one
-    that ran (the residual changes only there), so a step after the loop's
-    test has failed costs the node alone. Adds the steps taken to
-    ``steps``."""
-    precond, matvec, going = _pcg_operators(lin, data, b, damping, tol)
-    x = torch.zeros_like(b)
-    r = b
-    p = precond(r)
-    rz = torch.sum(r * p)
-    active = going(r)
-
-    def step():
-        hp = matvec(p)
-        alpha = rz / torch.clamp(torch.sum(p * hp), min=1e-20)
-        x.add_(alpha * p)
-        r_new = r - alpha * hp
-        z = precond(r_new)
-        rz_new = torch.sum(r_new * z)
-        beta = rz_new / torch.clamp(rz, min=1e-20)
-        p.copy_(z + beta * p)
-        r.copy_(r_new)
-        rz.copy_(rz_new)
-        steps.add_(1)
-        active.copy_(going(r))
-
-    for _ in range(iters):
-        when(active, step)
-    return x
 
 
 class _LMState(NamedTuple):
@@ -308,66 +262,14 @@ def _lm_iteration(state: _LMState, data: PoseGraphData, gauge, cg_iters: int,
         cg=cg + steps * active)
 
 
-def _lm_body(s: _LMState, going, data: PoseGraphData, gauge, cg_iters: int, when):
-    """One LM iteration of a solve that has not converged, written into
-    ``s`` in place, its CG steps each under ``when`` (``_pcg_in_place``):
-    what ``_lm_iteration`` returns while ``done`` is false, bit for bit.
-    Sets ``going``, the flag of the next iteration (not ``done``)."""
-    lin = _linearize(s.poses, data, gauge)
-    g = _gradient(lin, s.poses, data)
-    step = _pcg_in_place(lin, data, -g, s.lam, cg_iters, 1e-6, s.cg, when)
-    new_poses = s.poses + step
-    new_poses = torch.cat(
-        [new_poses[:, :2], normalize_angle(new_poses[:, 2:3])], dim=1)
-    new_cost = graph_cost(new_poses, data)
-    improved = new_cost < s.cost
-    gnorm = torch.sqrt(torch.sum(g * g))
-    converged = improved & ((s.cost - new_cost) < 1e-7 * (s.cost + 1e-12))
-    converged = converged | (gnorm < 1e-10)
-    s.poses.copy_(torch.where(improved, new_poses, s.poses))
-    s.lam.copy_(torch.where(improved, torch.clamp(s.lam * 0.33, min=1e-8), s.lam * 10.0))
-    s.cost.copy_(torch.where(improved, new_cost, s.cost))
-    s.it.add_(1)
-    s.done.copy_(converged)
-    going.copy_(~converged)
-
-
-def _if_node(graph):
-    """``when(pred, fn)`` for a capture into ``graph``: ``fn``'s work
-    captured into the body of a conditional node that runs where the () bool
-    ``pred`` holds when the replay reaches it. Every tensor that a body
-    writes and later work reads is made before the node and written in
-    place."""
-    def when(pred, fn):
-        graph.begin_capture_to_if_node(pred)
-        try:
-            fn()
-        finally:
-            graph.end_capture_to_conditional_node()
-    return when
-
-
-def conditional_nodes() -> bool:
-    """Whether this PyTorch captures conditional nodes (CUDA 12.4 or
-    later): an LM iteration after convergence and a CG step after its
-    loop's test has failed are then skipped on the device."""
-    if not hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node"):
-        return False
-    version = tuple(int(v) for v in (torch.version.cuda or "0.0").split(".")[:2])
-    return version >= (12, 4)
-
-
 def closure_path(device) -> str:
-    """How an unsharded SPA solve on ``device`` runs: "graph+if" (a program
-    per bucket replayed from a CUDA graph with conditional nodes), "graph"
-    (the same program, the masked iteration) or "eager: cpu tensors" (a
-    sharded solve is eager everywhere)."""
-    if torch.device(device).type != "cuda":
-        return "eager: cpu tensors"
-    return "graph+if" if conditional_nodes() else "graph"
+    """How an unsharded SPA solve on ``device`` runs: "graph" (a program per
+    bucket replayed from a CUDA graph) or "eager: cpu tensors" (a sharded
+    solve is eager everywhere)."""
+    return "graph" if torch.device(device).type == "cuda" else "eager: cpu tensors"
 
 
-def _init_state(s: _LMState, going, data: PoseGraphData):
+def _init_state(s: _LMState, data: PoseGraphData):
     """Reset the carry ``s`` in place to the start of a solve of ``data``."""
     s.poses.copy_(data.poses)
     s.lam.fill_(1e-4)
@@ -375,7 +277,6 @@ def _init_state(s: _LMState, going, data: PoseGraphData):
     s.it.zero_()
     s.done.zero_()
     s.cg.zero_()
-    going.fill_(True)
 
 
 def _packed(s: _LMState) -> torch.Tensor:
@@ -400,12 +301,9 @@ class SolveProgram:
     A solve copies the graph into the buffers, resets the carry on the
     device and replays the iteration ``max_iters`` times; the first solve
     runs its first iteration eagerly (the warm-up a capture needs, and a
-    real iteration) and captures the second on a side stream. With
-    ``conditional`` the captured iteration is ``_lm_body`` inside a
-    conditional node on not ``done``, each CG step in a node of its own, so
-    the device stops where JAX's ``while_loop``s stop; without it, the
-    masked ``_lm_iteration``. Both give the masked loop's result bit for
-    bit under deterministic sums. The capture is thread-local (the engine's
+    real iteration) and captures the second on a side stream: the masked
+    ``_lm_iteration``, so the result is the eager masked loop's bit for bit
+    under deterministic sums. The capture is thread-local (the engine's
     front end launches and reads from another thread meanwhile; a draw from
     the card's random generator there would be refused, and the engine makes
     none) and holds ``step_graph.capture_guard``. A capture that fails
@@ -413,8 +311,7 @@ class SolveProgram:
     latest solve did: "capture" or "replay", ``last_capture_s`` the seconds
     its capture took (the warm-up iteration included)."""
 
-    def __init__(self, device, pn: int, pe: int, max_iters: int, cg_iters: int,
-                 conditional: bool):
+    def __init__(self, device, pn: int, pe: int, max_iters: int, cg_iters: int):
         f32 = dict(dtype=torch.float32, device=device)
         self.data = PoseGraphData(
             poses=torch.zeros((pn, 3), **f32),
@@ -428,24 +325,19 @@ class SolveProgram:
             cost=torch.zeros((), **f32), it=torch.zeros((), **i32),
             done=torch.zeros((), dtype=torch.bool, device=device),
             cg=torch.zeros((), **i32))
-        self.going = torch.ones((), dtype=torch.bool, device=device)
         self.gauge = torch.zeros((pn, 1), **f32)
         self.name = f"solve_{pn}x{pe}"
-        self.max_iters, self.cg_iters, self.conditional = max_iters, cg_iters, conditional
+        self.max_iters, self.cg_iters = max_iters, cg_iters
         self.graph = None
         self.last = None
         self.last_capture_s = 0.0         # seconds the latest solve spent capturing
         self._lock = threading.Lock()
         self._done = None                 # event after the latest solve's output
 
-    def _iteration(self, when=None):
+    def _iteration(self):
         """One LM iteration on the static buffers, in place."""
-        s, data = self.state, self.data
-        if when is not None:
-            when(self.going, lambda: _lm_body(s, self.going, data, self.gauge,
-                                              self.cg_iters, when))
-            return
-        for dst, src in zip(s, _lm_iteration(s, data, self.gauge, self.cg_iters,
+        s = self.state
+        for dst, src in zip(s, _lm_iteration(s, self.data, self.gauge, self.cg_iters,
                                              None, None)):
             dst.copy_(src)
 
@@ -463,7 +355,7 @@ class SolveProgram:
             with capture_guard():
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    self._iteration(_if_node(graph) if self.conditional else None)
+                    self._iteration()
                 finally:
                     graph.capture_end()
         main.wait_stream(side)
@@ -480,7 +372,7 @@ class SolveProgram:
             for dst, src in zip(self.data, data):
                 dst.copy_(src, non_blocking=True)
             self.gauge.copy_(_gauge_mask(self.data))
-            _init_state(self.state, self.going, self.data)
+            _init_state(self.state, self.data)
             n = self.max_iters
             self.last, self.last_capture_s = "replay", 0.0
             if self.graph is None:
@@ -495,35 +387,28 @@ class SolveProgram:
             return out
 
 
-_programs: dict = {}          # (device, shape, budgets, mode) -> SolveProgram
+_programs: dict = {}          # (device, shape, budgets, sum mode) -> SolveProgram
 _programs_lock = threading.Lock()
 
 
-def program_key(data: PoseGraphData, max_iters: int = 50, cg_iters: int = 100,
-                conditional: bool | None = None) -> tuple:
+def program_key(data: PoseGraphData, max_iters: int = 50, cg_iters: int = 100) -> tuple:
     """The key of ``data``'s solve program (``solve_program``)."""
-    if conditional is None:
-        conditional = conditional_nodes()
     return (str(data.poses.device), data.poses.shape[0], data.edge_ij.shape[0], max_iters,
-            cg_iters, bool(conditional), torch.are_deterministic_algorithms_enabled())
+            cg_iters, torch.are_deterministic_algorithms_enabled())
 
 
-def solve_program(data: PoseGraphData, max_iters: int = 50, cg_iters: int = 100,
-                  conditional: bool | None = None) -> SolveProgram:
+def solve_program(data: PoseGraphData, max_iters: int = 50,
+                  cg_iters: int = 100) -> SolveProgram:
     """The program of ``data``'s padded shape on its card, made at the first
     solve at that shape and kept for the process, as JAX keeps a compiled
     executable: keyed by the device, the node and edge buckets, the
-    iteration budgets, the kind of iteration (``conditional``, None: where
-    this PyTorch has conditional nodes) and whether deterministic sums are
-    on (a capture holds the algorithms chosen while it was made)."""
-    if conditional and not conditional_nodes():
-        raise RuntimeError("this PyTorch captures no conditional nodes "
-                           "(CUDAGraph.begin_capture_to_if_node, CUDA 12.4)")
-    key = program_key(data, max_iters, cg_iters, conditional)
+    iteration budgets and whether deterministic sums are on (a capture holds
+    the algorithms chosen while it was made)."""
+    key = program_key(data, max_iters, cg_iters)
     with _programs_lock:
         prog = _programs.get(key)
         if prog is None:
-            prog = _programs[key] = SolveProgram(data.poses.device, *key[1:6])
+            prog = _programs[key] = SolveProgram(data.poses.device, *key[1:5])
         return prog
 
 
@@ -546,20 +431,19 @@ def _masked_solve(data: PoseGraphData, max_iters: int, cg_iters: int,
 
 
 def solve_packed(data: PoseGraphData, max_iters: int = 50, cg_iters: int = 100,
-                 replay: bool = True, conditional: bool | None = None):
+                 replay: bool = True):
     """The unsharded solve as one f32 vector [poses (3N) | cost | LM
     iterations | CG steps], the engine's one host read, and the program that
     ran it (None where it ran eagerly: CPU tensors, ``replay`` False, no
     iteration)."""
     if replay and data.poses.is_cuda and max_iters > 0:
-        prog = solve_program(data, max_iters, cg_iters, conditional)
+        prog = solve_program(data, max_iters, cg_iters)
         return prog(data), prog
     return _packed(_masked_solve(data, max_iters, cg_iters)), None
 
 
 def lm_solve(data: PoseGraphData, max_iters: int = 50, cg_iters: int = 100,
-             reduce_fn=None, scalar_reduce_fn=None, replay: bool = True,
-             conditional: bool | None = None):
+             reduce_fn=None, scalar_reduce_fn=None, replay: bool = True):
     """Levenberg-Marquardt loop with Ceres-style accept/reject and adaptive
     damping, JAX's ``while_loop``. Returns (poses, final_cost, iterations)
     as device tensors; nothing is read on the host. ``reduce_fn`` /
@@ -570,7 +454,7 @@ def lm_solve(data: PoseGraphData, max_iters: int = 50, cg_iters: int = 100,
     every other solve launches the masked loop of ``max_iters`` iterations
     eagerly."""
     if reduce_fn is None and scalar_reduce_fn is None:
-        return _unpacked(solve_packed(data, max_iters, cg_iters, replay, conditional)[0])
+        return _unpacked(solve_packed(data, max_iters, cg_iters, replay)[0])
     s = _masked_solve(data, max_iters, cg_iters, reduce_fn, scalar_reduce_fn)
     return s.poses, s.cost, s.it
 

@@ -371,14 +371,14 @@ class ScanStore:
     def all_arrays(self, bucket: int | None = None):
         """Every stored scan as device tensors ``(points (B,P,2), masks
         (B,P), poses (B,3), valid (B,))`` padded as the JAX package's
-        ``all_arrays`` pads them, to ``B = 64·2^k >= n`` (or ``bucket``):
-        views of the device mirror's first B rows (its capacity, ``256·2^j
-        >= n``, holds the bucket) with ``valid`` false past the stored
-        scans."""
+        ``all_arrays`` pads them, to ``B = 64·2^k >= n`` (or ``bucket``;
+        ``len(store)``: the exact rows): views of the device mirror's first
+        B rows (its capacity, ``256·2^j >= n``, holds the bucket) with
+        ``valid`` false past the stored scans."""
         with self._lock:
             pts, msk, poses = self.device_arrays()
             n = len(self)
-            b = bucket or solver_bucket(n)
+            b = solver_bucket(n) if bucket is None else bucket
             if b > self._dev_cap:
                 raise ValueError(f"all_arrays: bucket {b} past the mirror's "
                                  f"{self._dev_cap} rows")
@@ -415,13 +415,16 @@ class EngineDiagnostics:
     captures_by_key: dict = dataclasses.field(default_factory=dict)
     replays_by_key: dict = dataclasses.field(default_factory=dict)
     # the loop closure's programs (JAX's solve and rebuild per bucket): the
-    # solve's path ("graph+if", "graph" or "eager: <why>") and the correction
-    # rebuild's ("graph" or "eager: <why>"); their captures and replays are
-    # counted above by program ("solve_<nodes>x<edges>": one a solve,
-    # "rebuild_<bucket>": one a correction); LM iterations and CG steps the
-    # last solve executed; seconds spent capturing either program
+    # solve's path ("graph" or "eager: <why>") and the correction rebuild's
+    # ("graph" or "eager: <why>"); their captures and replays are counted
+    # above by program ("solve_<nodes>x<edges>": one a solve,
+    # "rebuild_<bucket>": one a correction); corrections rebuilt eagerly from
+    # the exact rows (the first at a rebuild program's key); LM iterations
+    # and CG steps the last solve executed; seconds spent capturing either
+    # program
     closure_path: str = ""
     rebuild_path: str = ""
+    eager_rebuilds: int = 0
     solve_lm_iters: int = 0
     solve_cg_steps: int = 0
     closure_capture_s: float = 0.0
@@ -522,9 +525,11 @@ class SlamEngine:
         self.backend.capture = self.diag.step_graph == "graph"
         self.backend.diag = self.diag
         # the correction rebuild's programs by bucket (``_rebuild_program``),
-        # captured on the card unless ``step_graph`` is off; the solve's
+        # captured on the card unless ``step_graph`` is off, and the key of
+        # each bucket's latest eager rebuild (``_rebuild_maps``); the solve's
         # programs are the back end's (``spa.solve_program``)
         self._rebuild_programs: dict = {}
+        self._rebuild_seen: dict = {}
         self.diag.closure_path = closure_path(self.device)
         self.diag.rebuild_path = ("eager: cpu tensors" if self.device.type != "cuda"
                                   else "graph" if step_graph else "eager: step_graph=False")
@@ -1380,7 +1385,7 @@ class SlamEngine:
         (InitMapWithRangeVec on the pub map, slam_processor.cpp:350-366).
         Callers hold the state lock."""
         cfg = self.config
-        pts, msk, poses, valid = self.store.all_arrays()
+        pts, msk, poses, valid = self.store.all_arrays(len(self.store))
         self._install_maps(pub=rebuild_count_map(
             self.fspec.pub_spec, self.state.pub.offset, pts, msk, poses,
             valid, cfg.map_update_free_factor, cfg.map_update_occu_factor,
@@ -1535,35 +1540,44 @@ class SlamEngine:
                 self.trajectory[i] = (t, self.store.poses[i].copy())
             self._publish_pub_arrays()
 
+    def _rebuild_key(self, b: int) -> tuple:
+        """The key of the rebuild program at bucket ``b``: the bucket, the
+        specs and the addresses and shapes of the maps it writes and of the
+        mirror's rows it reads, as ``_program`` keys the steps."""
+        st = self.state
+        specs = (self.fspec.pub_spec, self.fspec.coarse_spec, self.fspec.fine_spec)
+        return (b, specs, signature([*st.pub, *st.coarse, *st.fine,
+                                     *self.store.device_arrays()]))
+
+    def _rebuild_all(self, pts, msk, poses, valid):
+        """``_rebuild_all_maps`` of the given rows into the state's maps."""
+        st, fs, cfg = self.state, self.fspec, self.config
+        _rebuild_all_maps(fs.pub_spec, fs.coarse_spec, fs.fine_spec, st.pub, st.coarse,
+                          st.fine, pts, msk, poses, valid, cfg.map_update_free_factor,
+                          cfg.map_update_occu_factor, int(cfg.map_min_passthrough),
+                          bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
+
     def _rebuild_program(self, b: int) -> StepGraph:
         """The correction rebuild of every map from the store's first ``b``
         rows (JAX's bucket), as one program over a staged vector holding the
         count of stored scans: it reads the device mirror's rows and writes
         the state's three maps in place (``_rebuild_all_maps``), one carve a
-        slot. On the card it is captured at its first call (the steps have
-        run every operation in it before) and replayed from then on; made
-        anew where the specs or a buffer it reads or writes changed (a pub
-        growth, a mirror doubling): the key holds the bucket, the specs and
-        their addresses and shapes, as ``_program`` keys the steps."""
-        st, store, cfg = self.state, self.store, self.config
-        pub, coarse, fine = st.pub, st.coarse, st.fine
-        rows = store.device_arrays()
-        specs = (self.fspec.pub_spec, self.fspec.coarse_spec, self.fspec.fine_spec)
-        key = (b, specs, signature([*pub, *coarse, *fine, *rows]))
+        slot. On the card it is captured at its first call (the steps, and
+        an eager rebuild before it, have run every operation in it) and
+        replayed from then on; made anew where its key (``_rebuild_key``)
+        changed: a pub growth, a mirror doubling."""
+        key = self._rebuild_key(b)
         prog = self._rebuild_programs.get(b)
         if prog is not None and prog.key == key:
             return prog
         if prog is not None:
             prog.release()
-        pts, msk, poses = (r[:b] for r in rows)
+        pts, msk, poses = (r[:b] for r in self.store.device_arrays())
         dev = self.device
 
         def fn(staged):
             valid = torch.arange(b, device=dev) < staged[0]
-            _rebuild_all_maps(*specs, pub, coarse, fine, pts, msk, poses, valid,
-                              cfg.map_update_free_factor, cfg.map_update_occu_factor,
-                              int(cfg.map_min_passthrough), bool(cfg.coarse_map_use_blur),
-                              bool(cfg.fine_map_use_blur))
+            self._rebuild_all(pts, msk, poses, valid)
             return valid
 
         prog = StepGraph(fn, 1, dev, capture=self.diag.rebuild_path == "graph",
@@ -1573,14 +1587,25 @@ class SlamEngine:
         return prog
 
     def _rebuild_maps(self, bucket: int | None = None):
-        """Rebuild every map from the stored scans at their current poses
-        through the program of the store's bucket (or ``bucket``), counting
-        its capture or replay in ``diag``. Callers hold the state lock."""
+        """Rebuild every map from the stored scans at their current poses.
+        The first correction at a key of the store's bucket (``_rebuild_key``)
+        rebuilds eagerly from the exact rows, so that a lone closure pays
+        no capture; the second makes the bucket's program and every later
+        one replays it. ``bucket`` (``warm_backend``): through the program at
+        that bucket at once. Counts the eager rebuild, the capture or the
+        replay in ``diag``. Callers hold the state lock."""
         store = self.store
         with store._lock:
             n = len(store)
-            b = bucket or solver_bucket(n)
+            b = solver_bucket(n) if bucket is None else bucket
             store.all_arrays(b)                   # the mirror's rows up to date
+            key, prog = self._rebuild_key(b), self._rebuild_programs.get(b)
+            if (bucket is None and (prog is None or prog.key != key)
+                    and self._rebuild_seen.get(b) != key):
+                self._rebuild_seen[b] = key
+                self._rebuild_all(*store.all_arrays(n))
+                self.diag.eager_rebuilds += 1
+                return
             prog = self._rebuild_program(b)
             host = torch.tensor([n], dtype=torch.float32)
             if prog.staged.is_cuda:

@@ -4,7 +4,8 @@ eager masked one and the dense one, on synthetic loop graphs; and the loop
 closure of legs 3 and 5, a parent tree against this one in turns.
 
     python3 scripts/torch_spa_on_device.py [--nodes 512,1024] [--tag NAME]
-                                           [--root PARENT [--legs leg3,leg5]]
+                                           [--root PARENT [--legs leg3,leg5,laps]
+                                            [--laps 3.15] [--seed 20]]
 
 Per graph (``parallel.multihost.make_synthetic_loop_graph``, seed 0: an
 odometry ring with a quarter as many loop edges, its poses noisy) one JSON
@@ -22,15 +23,20 @@ and the card's name and power limit.
 ``--root PARENT``: a parent's unpacked tree. The legs (``--legs``: ``leg3``,
 chip_smoke's leg 3 through the API, ``configs/real_robot.yaml``, the second
 correlation kernel, blocking; ``leg5``, the same log with the back end on
-its worker thread and the first kernel, as leg 5 runs it) then run for the
-parent and for this tree in turns (parent, change, change, parent), each
-run in a process of its own that imports that tree's package, on the
-corridor-loop log simulated once here. One JSON line a run: ms per fed scan
-(first scan to ``finish()`` and a synchronise), ``solve_and_correct_s``
-(the back end's host clock over its solves and corrections),
-``worker_longest_pass_s`` (the longest back-end pass, the worker's stall in
-``leg5``), the closures and solves, and what ``diag`` says of the closure's
-programs where the tree has them.
+its worker thread and the first kernel, as leg 5 runs it; ``laps``, leg 3
+blocking on the same corridor driven ``--laps`` times round, simulated from
+``--seed``, where loops close again and again) then run for the parent and
+for this tree in turns (parent, change, change, parent), each run in a
+process of its own that imports that tree's package, on the corridor-loop
+logs simulated once here. One JSON line a run: ms per fed scan (first scan
+to ``finish()`` and a synchronise), ``solve_and_correct_s`` (the back end's
+host clock over its solves and corrections), ``worker_longest_pass_s`` (the
+longest back-end pass, the worker's stall in ``leg5``), the closures and
+solves; every solve with its graph's nodes and edges, the stored scans, the
+buckets they fall in (JAX's ``64·2^k``) and its seconds; the solves per
+bucket and the share of solves that fall in a bucket an earlier solve of
+the run had (the ones a program per bucket can serve by replay); and what
+``diag`` says of the closure's programs where the tree has them.
 """
 
 from __future__ import annotations
@@ -49,22 +55,31 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 
+def bucket_of(count: int) -> int:
+    """JAX's shape bucket: the smallest ``64·2^k`` that holds ``count``."""
+    b = 64
+    while b < count:
+        b *= 2
+    return b
+
+
 def run_leg(tree: str, leg: str, log_path: str, tag: str) -> dict:
     """One run of ``leg`` with the package of ``tree`` (imported by the
-    caller) on the saved corridor log."""
+    caller) on a saved corridor log."""
     import os
 
     import numpy as np
     import torch
 
     from roborts_slam_tpu_torch import SlamEngine, load_config
+    from roborts_slam_tpu_torch.backend.processor import Backend
     from roborts_slam_tpu_torch.models.scan import LaserModel
 
     d = np.load(log_path)
     laser = LaserModel.from_array(d["laser"])
     cfg = load_config(str(Path(tree) / "configs" / "real_robot.yaml"))
-    os.environ["ROBORTS_CORR_KERNEL"] = "2" if leg == "leg3" else "1"
-    passes = []
+    os.environ["ROBORTS_CORR_KERNEL"] = "1" if leg == "leg5" else "2"
+    passes, solves = [], []
     orig = SlamEngine._backend_pass
 
     def timed_pass(self, batch):
@@ -74,8 +89,22 @@ def run_leg(tree: str, leg: str, log_path: str, tag: str) -> dict:
         finally:
             passes.append(time.perf_counter() - t)
 
+    solve = Backend._solve_and_correct
+
+    def timed_solve(self):
+        nodes, edges, scans = self.graph.num_vertices, len(self.graph.edges), len(self.store)
+        t = time.perf_counter()
+        try:
+            return solve(self)
+        finally:
+            solves.append({"nodes": nodes, "edges": edges, "scans": scans,
+                           "bucket": [bucket_of(nodes), bucket_of(max(edges, 1)),
+                                      bucket_of(scans)],
+                           "seconds": time.perf_counter() - t})
+
     SlamEngine._backend_pass = timed_pass
-    eng = SlamEngine(cfg, laser, synchronous_backend=leg == "leg3")
+    Backend._solve_and_correct = timed_solve
+    eng = SlamEngine(cfg, laser, synchronous_backend=leg != "leg5")
     n = len(d["times"])
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -85,14 +114,21 @@ def run_leg(tree: str, leg: str, log_path: str, tag: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     back, diag = eng.backend, eng.diag
+    per_bucket: dict = {}
+    for rec in solves:
+        key = "x".join(str(b) for b in rec["bucket"])
+        per_bucket[key] = per_bucket.get(key, 0) + 1
     return {"leg": leg, "tag": tag, "tree": tree, "scans_fed": n, "kept": len(eng.store),
             "ms_per_scan_fed": 1e3 * wall / n, "loop_closures": back.num_loop_closures,
             "spa_solves": back.num_solves, "solve_and_correct_s": back.solve_time_s,
             "worker_longest_pass_s": max(passes, default=0.0), "backend_passes": len(passes),
+            "solves": solves, "solves_per_bucket": per_bucket,
+            "share_in_a_bucket_seen_before": (len(solves) - len(per_bucket)) / len(solves)
+            if solves else None,
             "fused_hits": back.num_fused_hits, "fused_misses": back.num_fused_misses,
             **{k: getattr(diag, k) for k in (
-                "closure_path", "rebuild_path", "solve_lm_iters", "solve_cg_steps",
-                "closure_capture_s") if hasattr(diag, k)},
+                "closure_path", "rebuild_path", "eager_rebuilds", "solve_lm_iters",
+                "solve_cg_steps", "closure_capture_s") if hasattr(diag, k)},
             "programs": {k: v for k, v in getattr(diag, "captures_by_key", {}).items()
                          if k.startswith(("solve_", "rebuild_"))},
             "program_replays": {k: v for k, v in getattr(diag, "replays_by_key", {}).items()
@@ -105,16 +141,25 @@ def legs_in_turns(args, card: str) -> int:
 
     import numpy as np
 
-    from roborts_slam_tpu_torch.bench.parity import corridor_loop_log
+    from roborts_slam_tpu_torch.bench.parity import LOOP_LAPS, LOOP_SEED, corridor_loop_log
 
-    loop = corridor_loop_log()
+    legs = [x for x in args.legs.split(",") if x]
     with tempfile.TemporaryDirectory() as tmp:
-        log_path = str(Path(tmp) / "corridor_loop.npz")
-        np.savez(log_path, laser=loop.laser.to_array(), ranges=loop.ranges,
-                 odom=loop.odom, times=loop.times)
+        logs = {}
+        for name in sorted({"laps" if leg == "laps" else "leg" for leg in legs}):
+            laps, seed = (args.laps, args.seed) if name == "laps" else (LOOP_LAPS, LOOP_SEED)
+            t = time.perf_counter()
+            loop = corridor_loop_log(laps, seed)
+            logs[name] = str(Path(tmp) / f"corridor_{name}.npz")
+            np.savez(logs[name], laser=loop.laser.to_array(), ranges=loop.ranges,
+                     odom=loop.odom, times=loop.times)
+            print(json.dumps({"log": name, "scans": len(loop.times), "laps": laps,
+                              "seed": seed, "simulated_s": time.perf_counter() - t}),
+                  flush=True)
         trees = {"parent": str(Path(args.root).resolve()), "change": str(HERE)}
         ok = True
-        for leg in [x for x in args.legs.split(",") if x]:
+        for leg in legs:
+            log_path = logs["laps" if leg == "laps" else "leg"]
             for tag in ("parent", "change", "change", "parent"):
                 proc = subprocess.run(
                     [sys.executable, str(Path(__file__).resolve()), "--leg-run", leg,
@@ -136,6 +181,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None)
     ap.add_argument("--legs", default="leg3,leg5")
+    ap.add_argument("--laps", type=float, default=3.15)
+    ap.add_argument("--seed", type=int, default=20)
     ap.add_argument("--nodes", default="512,1024")
     ap.add_argument("--tag", default="")
     ap.add_argument("--leg-run", default=None, help=argparse.SUPPRESS)

@@ -1,11 +1,13 @@
 """Port vs JAX package: the loop closure as the JAX package compiles it. The
 pose graph padded to JAX's buckets (``as_solver_data``) and solved padded;
-the in-place LM iteration that a solve program captures with conditional
-nodes, run here under host tests, against the masked loop bit for bit; the
-correction rebuild on the store padded to JAX's bucket (``all_arrays``)
-against JAX's ``_rebuild_all_maps`` and against the unpadded loop; the
-programs' keys; ``warm_backend``'s buckets. Inputs are made with numpy from
-a seed (graphs round a circle, scans of ``tests/data/golden_icra.npz``)."""
+the masked LM loop against JAX's two ``while_loop``s run as host loops, bit
+for bit, with the CG steps they take; the correction rebuild on the store
+padded to JAX's bucket (``all_arrays``) against JAX's ``_rebuild_all_maps``
+and against a per-scan loop over the exact scans; the programs' keys; when
+a correction rebuilds eagerly and when through its program; the pub-only
+clip rebuild on the exact rows; ``warm_backend``'s buckets. Inputs are made
+with numpy from a seed (graphs round a circle, scans of
+``tests/data/golden_icra.npz``)."""
 
 import os
 
@@ -28,7 +30,9 @@ from roborts_slam_tpu.models.scan import ranges_to_packed
 from roborts_slam_tpu_torch.backend.pose_graph import PoseGraph as TGraph
 from roborts_slam_tpu_torch.frontend.processor import FrontendSpec as TSpec
 from roborts_slam_tpu_torch.models.scan import LaserModel as TLaser
-from roborts_slam_tpu_torch.ops.raster import rebuild_count_map, stamp_scan_batch
+import roborts_slam_tpu_torch.ops.raster as traster
+from roborts_slam_tpu_torch.ops.raster import scan_mark_image, stamp_scan_batch
+from roborts_slam_tpu_torch.utils.geometry import normalize_angle
 
 torch.set_num_threads(1)
 
@@ -109,60 +113,99 @@ def test_padded_solve_matches_jax(n, e, seed):
     assert float(tc) < 0.1 * float(tspa.graph_cost(td.poses, td))
 
 
-def _when_host(pred, fn):
-    """A conditional node's semantics with the flag read on the host."""
-    if bool(pred):
-        fn()
+def _while_solve(data, max_iters=50, cg_iters=100, tol=1e-6):
+    """JAX's ``lm_solve`` and ``_pcg`` ``while_loop``s as host loops, each
+    test read on the host, over the port's own products: the state where
+    they exit (poses, cost, damping, LM iterations, converged) and the CG
+    steps they take."""
+    gauge = tspa._gauge_mask(data)
+    poses, lam = data.poses, torch.full((), 1e-4)
+    cost = tspa.graph_cost(poses, data)
+    it = cg = 0
+    done = False
+    while it < max_iters and not done:
+        lin = tspa._linearize(poses, data, gauge)
+        g = tspa._gradient(lin, poses, data)
+        b = -g
+        pinv, _ = torch.linalg.inv_ex(tspa._block_diag(lin, data, lam))
+
+        def precond(v):
+            return torch.einsum("nij,nj->ni", pinv, v) * gauge
+
+        x, r = torch.zeros_like(b), b
+        z = precond(r)
+        p, rz = z, torch.sum(r * z)
+        bnorm = torch.clamp(torch.sqrt(torch.sum(b * b)), min=1e-12)
+        k = 0
+        while k < cg_iters and bool(torch.sqrt(torch.sum(r * r)) > tol * bnorm):
+            hp = tspa._hvp(lin, data, p) + lam * (p * gauge)
+            alpha = rz / torch.clamp(torch.sum(p * hp), min=1e-20)
+            x = x + alpha * p
+            r_new = r - alpha * hp
+            z = precond(r_new)
+            rz_new = torch.sum(r_new * z)
+            beta = rz_new / torch.clamp(rz, min=1e-20)
+            p, r, rz = z + beta * p, r_new, rz_new
+            k += 1
+        cg += k
+        new_poses = poses + x
+        new_poses = torch.cat([new_poses[:, :2], normalize_angle(new_poses[:, 2:3])], dim=1)
+        new_cost = tspa.graph_cost(new_poses, data)
+        improved = bool(new_cost < cost)
+        done = (improved and bool((cost - new_cost) < 1e-7 * (cost + 1e-12))) or bool(
+            torch.sqrt(torch.sum(g * g)) < 1e-10)
+        if improved:
+            poses, cost, lam = new_poses, new_cost, torch.clamp(lam * 0.33, min=1e-8)
+        else:
+            lam = lam * 10.0
+        it += 1
+    return poses, cost, lam, it, done, cg
 
 
-BODY_CASES = [dict(n=40, e=45, seed=0), dict(n=130, e=150, seed=5, noise=0.005),
-              dict(n=30, e=29, seed=1, noise=0.0, init_noise=0.0, line=True)]
+WHILE_CASES = [dict(n=40, e=45, seed=0), dict(n=130, e=150, seed=5, noise=0.005),
+               dict(n=30, e=29, seed=1, noise=0.0, init_noise=0.0, line=True)]
 
 
-@pytest.mark.parametrize("case", BODY_CASES, ids=["ring40", "ring130", "converged"])
-def test_in_place_body_equals_masked_loop(case):
-    """The LM iteration a solve program captures under conditional nodes
-    (``spa._lm_body``, each CG step in place under its own test), run here
-    with the tests read on the host, against the masked loop: poses, cost,
-    damping, LM iterations, convergence and CG steps bit for bit; the CG
-    steps taken below ``it × cg_iters``. The last case starts at its
-    optimum (exact measurements): the first iteration converges and the
-    other 49 bodies are skipped."""
+@pytest.mark.parametrize("case", WHILE_CASES, ids=["ring40", "ring130", "converged"])
+def test_masked_loop_equals_while_loops(case):
+    """The masked loop that a solve program replays (every one of 50 × 100
+    steps computed, those after a test fails discarded) against JAX's
+    ``while_loop``s run as host loops: poses, cost, damping, LM iterations
+    and convergence bit for bit, and the CG steps it counts are those the
+    while loops take, below ``it × cg_iters``. The last case starts at its
+    optimum (exact measurements): a zero gradient, one iteration, no CG
+    step."""
     _, tg, init = _graphs(**case)
     data = tg.as_solver_data(init, "cpu")
-    ref = tspa._masked_solve(data, 50, 100)
-    s = tspa._LMState(*(torch.zeros_like(t) for t in ref))
-    going = torch.ones((), dtype=torch.bool)
-    tspa._init_state(s, going, data)
-    gauge = tspa._gauge_mask(data)
-    for _ in range(50):
-        _when_host(going, lambda: tspa._lm_body(s, going, data, gauge, 100, _when_host))
-    for name, a, b in zip(tspa._LMState._fields, ref, s):
-        assert torch.equal(a, b), name
-    print(f"lm iterations {int(s.it)}, cg steps {int(s.cg)}")
-    if case.get("line"):            # a zero gradient: no CG step at all
-        assert int(s.it) == 1 and bool(s.done) and int(s.cg) == 0
+    got = tspa._masked_solve(data, 50, 100)
+    poses, cost, lam, it, done, cg = _while_solve(data)
+    assert torch.equal(got.poses, poses) and torch.equal(got.cost, cost)
+    assert torch.equal(got.lam, lam)
+    assert (int(got.it), bool(got.done), int(got.cg)) == (it, done, cg)
+    print(f"lm iterations {it}, cg steps {cg}")
+    if case.get("line"):
+        assert it == 1 and done and cg == 0
     else:
-        assert 0 < int(s.cg) < int(s.it) * 100
-    packed = tspa._packed(ref)
-    poses, cost, it = tspa._unpacked(packed)
-    assert torch.equal(poses, ref.poses) and torch.equal(cost, ref.cost)
-    assert int(it) == int(ref.it) and int(packed[-1]) == int(ref.cg)
+        assert 0 < cg < it * 100
+    packed = tspa._packed(got)
+    p, c, i = tspa._unpacked(packed)
+    assert torch.equal(p, got.poses) and torch.equal(c, got.cost)
+    assert int(i) == it and int(packed[-1]) == cg
 
 
 def test_solve_programs_keyed_by_bucket():
-    """One program per (device, node bucket, edge bucket, budgets, kind,
-    sum mode): two graphs in one bucket share it, another bucket or budget
-    has its own (made, not run: a program runs on the card only)."""
+    """One program per (device, node bucket, edge bucket, budgets, sum
+    mode): two graphs in one bucket share it, another bucket or budget has
+    its own (made, not run: a program runs on the card only)."""
     a = _graphs(40, 45, 0)[1].as_solver_data(np.zeros((40, 3)), "cpu")
     b = _graphs(60, 63, 1)[1].as_solver_data(np.zeros((60, 3)), "cpu")
     c = _graphs(70, 75, 2)[1].as_solver_data(np.zeros((70, 3)), "cpu")
-    pa = tspa.solve_program(a, conditional=False)
-    assert tspa.solve_program(b, conditional=False) is pa and pa.name == "solve_64x64"
-    assert tspa.solve_program(c, conditional=False).name == "solve_128x128"
-    assert tspa.solve_program(a, 20, 100, conditional=False) is not pa
+    pa = tspa.solve_program(a)
+    assert tspa.solve_program(b) is pa and pa.name == "solve_64x64"
+    assert tspa.solve_program(c).name == "solve_128x128"
+    assert tspa.solve_program(a, 20, 100) is not pa
     assert tspa.closure_path("cpu") == "eager: cpu tensors"
-    assert tspa.program_key(a, conditional=False) == ("cpu", 64, 64, 50, 100, False, False)
+    assert tspa.program_key(a) == ("cpu", 64, 64, 50, 100, False)
 
 
 # ---- the correction rebuild on the store padded to JAX's bucket ----
@@ -224,10 +267,23 @@ def test_padded_rebuild_matches_jax(stores):
     np.testing.assert_allclose(fine.probs.numpy(), np.asarray(jfi.probs), atol=1e-6)
 
 
+def _per_scan_pub(spec, offset, pts, msk, poses, free, occu, extra):
+    """The pub rebuild as a loop over the exact scans, each carved alone and
+    its counts added by 0/1 planes times the increments (the port's rebuild
+    before the padded one), with scan 0 re-applied ``extra`` times."""
+    out = tgm.CountMap(torch.zeros((spec.height, spec.width)),
+                       torch.zeros((spec.height, spec.width)), offset)
+    for i in [*range(pts.shape[0]), *[0] * extra]:
+        mark = scan_mark_image(spec, offset, pts[i], msk[i], poses[i])
+        out.hits.add_((mark == 2).to(torch.float32) * (1.0 + occu))
+        out.passes.add_((mark > 0).to(torch.float32) * (1.0 + free))
+    return out
+
+
 def test_padded_rebuild_equals_unpadded_loop(stores):
-    """The padded rebuild against the loop over the exact stored scans (the
-    port's rebuild before padding): every map bit for bit (a masked slot
-    adds zeros and stamps nothing)."""
+    """The padded rebuild against a per-scan loop over the exact stored
+    scans (``_per_scan_pub``; the match maps stamped from the exact rows):
+    every map bit for bit (a masked slot adds zeros and stamps nothing)."""
     *_, tcfg, tfs, ts = stores
     pts, msk, poses, valid = ts.all_arrays()
     n = len(ts)
@@ -236,9 +292,8 @@ def test_padded_rebuild_equals_unpadded_loop(stores):
                            pts, msk, poses, valid, *_factors(tcfg))
     free, occu, extra, cb, fb = _factors(tcfg)
     ones = torch.ones((n,), dtype=torch.bool)
-    want = rebuild_count_map(tfs.pub_spec, torch.as_tensor(_offsets(tfs.pub_spec)),
-                             pts[:n], msk[:n], poses[:n], ones, free, occu,
-                             first_scan_extra=extra)
+    want = _per_scan_pub(tfs.pub_spec, torch.as_tensor(_offsets(tfs.pub_spec)),
+                         pts[:n], msk[:n], poses[:n], free, occu, extra)
     assert torch.equal(pub.hits, want.hits) and torch.equal(pub.passes, want.passes)
     for spec, got, blur in ((tfs.coarse_spec, coarse, cb), (tfs.fine_spec, fine, fb)):
         ref = stamp_scan_batch(spec, tgm.make_prob_map(spec, _offsets(spec), "cpu"),
@@ -314,3 +369,62 @@ def test_warm_backend_buckets_reach_the_programs(icra, monkeypatch):
     assert seen == want and len(want) == 4
     assert sorted(eng._rebuild_programs) == [64, 128]      # 8 too small, 512 past the mirror
     assert eng.backend.num_solves == 0
+
+
+def _planes(eng):
+    st = eng.state
+    return [t.clone() for t in (st.pub.hits, st.pub.passes, st.coarse.probs, st.fine.probs)]
+
+
+def _eager_planes(eng):
+    """Every map rebuilt by ``_rebuild_all_maps`` from the exact stored rows
+    into fresh planes."""
+    st, fs = eng.state, eng.fspec
+    pub, coarse, fine = (tgm.CountMap(torch.zeros_like(st.pub.hits),
+                                      torch.zeros_like(st.pub.passes), st.pub.offset),
+                         tgm.ProbMap(torch.zeros_like(st.coarse.probs), st.coarse.offset),
+                         tgm.ProbMap(torch.zeros_like(st.fine.probs), st.fine.offset))
+    teng._rebuild_all_maps(fs.pub_spec, fs.coarse_spec, fs.fine_spec, pub, coarse, fine,
+                           *eng.store.all_arrays(len(eng.store)), *_factors(eng.config))
+    return [pub.hits, pub.passes, coarse.probs, fine.probs]
+
+
+def test_first_correction_rebuilds_eagerly(icra):
+    """The first correction at a key of its bucket rebuilds eagerly from the
+    exact rows (a lone closure pays no capture); the second makes the
+    bucket's program and the third calls it again. A pub growth changes the
+    key: the next correction is eager again, the one after makes a new
+    program. Every rebuild leaves the maps that ``_rebuild_all_maps`` makes
+    from the exact rows, bit for bit."""
+    eng = _engine(icra)
+    assert len(eng.store) < 64
+    with eng._state_lock:
+        seen = []
+        for k in range(5):
+            if k == 3:
+                eng._grow_pub_to(eng.fspec.pub_spec.width + 64, eng.fspec.pub_spec.height,
+                                 64, 0)
+            eng._rebuild_maps()
+            prog = eng._rebuild_programs.get(64)
+            fresh = prog is not None and prog.key == eng._rebuild_key(64)
+            seen.append((eng.diag.eager_rebuilds, prog.calls if fresh else None))
+            for a, b in zip(_planes(eng), _eager_planes(eng)):
+                assert torch.equal(a, b)
+    assert seen == [(1, None), (1, 1), (1, 2), (2, None), (2, 1)]
+
+
+def test_pub_clip_rebuild_carves_exact_rows(icra, monkeypatch):
+    """The pub-only clip rebuild (``_rebuild_pub``) carves the stored scans
+    and the re-applications of scan 0, none of a bucket's padding slots."""
+    eng = _engine(icra)
+    carves = []
+    carve = traster.ray_mark_image
+
+    def counted(*a):
+        carves.append(1)
+        return carve(*a)
+
+    monkeypatch.setattr(traster, "ray_mark_image", counted)
+    with eng._state_lock:
+        eng._rebuild_pub()
+    assert len(carves) == len(eng.store) + int(eng.config.map_min_passthrough) < 64
