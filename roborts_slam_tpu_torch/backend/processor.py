@@ -53,6 +53,7 @@ from ..ops.cuda.correlation import kernel_version
 from ..ops.raster import stamp_scan_batch
 from ..ops.raycast import map_feedback_penalty
 from ..step_graph import StepGraph, signature
+from ..utils.profiling import StageTimers
 from .pose_graph import PoseGraph
 from .spa import solve_packed
 
@@ -269,10 +270,25 @@ class Backend:
         self.num_links = 0
         self.num_chain_dispatches = 0     # separate chain-match batches
         self.num_solves = 0               # SPA solves
-        self.num_fused_hits = 0           # fused chain rows taken
+        self.num_fused_hits = 0           # fused chain sets taken
         self.num_fused_misses = 0         # predicted chain set diverged (or stale)
+        # the fused steps' chain rows: run (every bucket row of every fused
+        # step, its padding and the rows of a scan the gate then rejects
+        # included; the engine counts them where it picks the bucket) and
+        # used (the rows of the chain sets taken)
+        self.fused_rows_run = 0
+        self.fused_rows_used = 0
+        # the SPA solves' CG steps: needed (the solve's own count, read with
+        # its poses) and run (``_SOLVE_ITERS`` x ``_SOLVE_CG_ITERS`` a solve:
+        # the program and the masked eager loop run every one)
+        self.cg_steps_needed = 0
+        self.cg_steps_run = 0
         self.chain_match_time_s = 0.0     # host clock, each call ends in its fetch
         self.solve_time_s = 0.0           # host clock, SPA solve + corrections
+        # stages (the engine hands its own over): closure_solve,
+        # closure_correct; device.chain_batch and device.solve where
+        # ``timers.device_timing`` is set
+        self.timers = StageTimers()
         # the separate chain batches' programs by (bucket, K) (step_graph.py):
         # replayed from CUDA graphs where ``capture`` is set (the engine sets
         # it with its steps'), counted in the engine's ``diag`` by program
@@ -291,6 +307,7 @@ class Backend:
     # ---- device-call helpers ----
 
     _BATCH_BUCKETS = (1, 2, 4, 8, 16)   # chain-batch sizes (the JAX package's)
+    _SOLVE_ITERS, _SOLVE_CG_ITERS = 50, 100   # a solve's LM iterations, CG steps each
 
     def device_memory_budget(self) -> float:
         """Bytes a chain batch may plan for: on the card, 90 % of its memory
@@ -422,7 +439,9 @@ class Backend:
         prog.staged.copy_(host, non_blocking=True)
         for plane, live in zip(prog.pub, pub):
             plane.copy_(live)
+        pair = self.timers.device_start(rows[0].device)
         out = prog()
+        self.timers.device_stop(pair, "device.chain_batch", prog.last == "replay")
         if self.diag is not None and prog.last != "eager":
             d, name = self.diag, f"batch_b{B}"
             d.replays_by_key[name] = d.replays_by_key.get(name, 0) + 1
@@ -478,6 +497,7 @@ class Backend:
         flat = torch.cat([bpose, bscore[:, None], bcov.reshape(bucket, 9)], dim=1) \
             .cpu().numpy().astype(np.float64)
         self.chain_match_time_s += time.perf_counter() - t0
+        self.timers.device_resolve()
         return [(flat[i, :3].copy(), float(flat[i, 3]),
                  flat[i, 4:].reshape(3, 3).copy()) for i in range(B)]
 
@@ -517,6 +537,7 @@ class Backend:
         if prematched is not None and prematched[0] == chains:
             results = prematched[1]
             self.num_fused_hits += 1
+            self.fused_rows_used += len(chains)
         else:
             if prematched is not None:
                 self.num_fused_misses += 1
@@ -562,6 +583,7 @@ class Backend:
             if _round == 0 and prematched is not None and prematched[0] == chains:
                 coarse = prematched[1]           # rode the fused step
                 self.num_fused_hits += 1
+                self.fused_rows_used += len(chains)
             else:
                 if _round == 0 and prematched is not None:
                     self.num_fused_misses += 1
@@ -606,26 +628,38 @@ class Backend:
         padded to JAX's buckets, so on the card every solve after the first
         in a bucket replays that bucket's program (``spa.SolveProgram``);
         the solve's poses and its LM iteration and CG step counts come back
-        in its one host read."""
+        in its one host read. Spanned as ``closure_solve`` (to that read)
+        and ``closure_correct`` (the corrections and the map rebuild); the
+        solve's device time goes to ``device.solve`` where
+        ``timers.device_timing`` is set."""
         self.num_solves += 1
         t0 = time.perf_counter()
-        n = self.graph.num_vertices
-        data = self.graph.as_solver_data(self.store.poses_array(),
-                                         self.store.device)
-        packed, prog = solve_packed(data)
-        # the solve stays on the device until here: its one host read
-        out = packed.cpu().numpy()
-        pn = data.poses.shape[0]
-        corrected = out[:3 * pn].reshape(pn, 3).astype(np.float64)[:n]
-        self.last_solve = {"program": None if prog is None else prog.name,
-                           "lm_iters": int(out[3 * pn + 1]),
-                           "cg_steps": int(out[3 * pn + 2])}
-        self.count_solve(prog)
-        if self.diag is not None:
-            self.diag.solve_lm_iters = self.last_solve["lm_iters"]
-            self.diag.solve_cg_steps = self.last_solve["cg_steps"]
+        timers = self.timers
+        with timers.stage("closure_solve"):
+            n = self.graph.num_vertices
+            data = self.graph.as_solver_data(self.store.poses_array(),
+                                             self.store.device)
+            pair = timers.device_start(data.poses.device)
+            packed, prog = solve_packed(data, self._SOLVE_ITERS, self._SOLVE_CG_ITERS)
+            timers.device_stop(pair, "device.solve",
+                               prog is not None and prog.last == "replay")
+            # the solve stays on the device until here: its one host read
+            out = packed.cpu().numpy()
+            timers.device_resolve()
+            pn = data.poses.shape[0]
+            corrected = out[:3 * pn].reshape(pn, 3).astype(np.float64)[:n]
+            self.last_solve = {"program": None if prog is None else prog.name,
+                               "lm_iters": int(out[3 * pn + 1]),
+                               "cg_steps": int(out[3 * pn + 2])}
+            self.cg_steps_needed += self.last_solve["cg_steps"]
+            self.cg_steps_run += self._SOLVE_ITERS * self._SOLVE_CG_ITERS
+            self.count_solve(prog)
+            if self.diag is not None:
+                self.diag.solve_lm_iters = self.last_solve["lm_iters"]
+                self.diag.solve_cg_steps = self.last_solve["cg_steps"]
         if self.on_corrections is not None:
-            self.on_corrections(corrected)
+            with timers.stage("closure_correct"):
+                self.on_corrections(corrected)
         self.solve_time_s += time.perf_counter() - t0
 
     def count_solve(self, prog):

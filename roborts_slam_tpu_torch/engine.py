@@ -399,10 +399,7 @@ class EngineDiagnostics:
     fused_steps: int = 0           # front-end steps that carried a chain batch
     backend_batches: int = 0       # back-end passes (one loop-closure attempt each)
     backend_batch_max: int = 0     # most kept scans one back-end pass took
-    match_time_s: float = 0.0
-    backend_time_s: float = 0.0
     dedistort_time_s: float = 0.0  # host clock, inside _dedistorted_points
-    recenter_time_s: float = 0.0   # host clock, inside _rebuild_match_maps_at
     # the per-scan step's path: "graph" (replayed from CUDA graphs) or
     # "eager: <the configuration that keeps it eager>"
     step_graph: str = ""
@@ -469,10 +466,12 @@ class SlamEngine:
         # (in asynchronous mode the rows travel through the worker's queue)
         self._fused_backend = fused_backend
         self.diag = EngineDiagnostics()
-        # host clock per stage, the JAX package's names: frontend_step (the
-        # whole step, its summary fetch included), frontend_fetch (that
-        # fetch), backend_update, backend_loop_closure (on the worker's
-        # thread in asynchronous mode)
+        # host clock per stage: the six that tile a blocking ``process()``
+        # call (ingest, frontend_prepare, frontend_step, frontend_commit,
+        # backend_update, backend_loop_closure; the last two on the worker's
+        # thread in asynchronous mode) and their parts, the JAX package's
+        # four among them; with ``timers.device_timing`` set, the device
+        # times of the replayed programs too
         self.timers = StageTimers()
         self._bounds_warned = False
         self.trajectory: list[tuple[float, np.ndarray]] = []  # (t, pose) per kept scan
@@ -524,6 +523,7 @@ class SlamEngine:
         self.diag.step_graph = self._step_path(step_graph)
         self.backend.capture = self.diag.step_graph == "graph"
         self.backend.diag = self.diag
+        self.backend.timers = self.timers
         # the correction rebuild's programs by bucket (``_rebuild_program``),
         # captured on the card unless ``step_graph`` is off, and the key of
         # each bucket's latest eager rebuild (``_rebuild_maps``); the solve's
@@ -574,20 +574,24 @@ class SlamEngine:
 
     def process(self, ranges: np.ndarray, odom: np.ndarray, t: float) -> bool:
         """Feed one scan (raw ranges); returns True if accepted. Raises the
-        asynchronous worker's exception if it has failed."""
-        self._raise_backend_error()
-        # move gate BEFORE any conversion work — rejected scans must cost
-        # nothing on the ingest path (MoveEnough runs first in the
-        # reference too, slam_processor.cpp:92)
-        if not self._pass_move_gate(odom, t):
-            return False
-        if (self.config.use_odom_correct and self.laser.scan_time > 0
-                and len(self._odom_history) >= 2):
-            points, mask, n_valid = self._dedistorted_points(ranges, t)
-        else:
-            points, mask, n_valid = ranges_to_packed(
-                ranges, self.laser, self.config.max_points)
-        return self._process_gated(points, mask, n_valid, odom, t)
+        asynchronous worker's exception if it has failed. While a profiler
+        records, the call is the span ``slam.scan/<i>``, ``i`` the count of
+        scans fed before it."""
+        with self.timers.root("scan", self.diag.scans_in):
+            with self.timers.stage("ingest"):
+                self._raise_backend_error()
+                # move gate BEFORE any conversion work — rejected scans must
+                # cost nothing on the ingest path (MoveEnough runs first in
+                # the reference too, slam_processor.cpp:92)
+                if not self._pass_move_gate(odom, t):
+                    return False
+                if (self.config.use_odom_correct and self.laser.scan_time > 0
+                        and len(self._odom_history) >= 2):
+                    points, mask, n_valid = self._dedistorted_points(ranges, t)
+                else:
+                    points, mask, n_valid = ranges_to_packed(
+                        ranges, self.laser, self.config.max_points)
+            return self._process_gated(points, mask, n_valid, odom, t)
 
     def _dedistorted_points(self, ranges: np.ndarray, t: float):
         """Odometry-based sweep de-distortion (LaserDataProcessor,
@@ -612,11 +616,14 @@ class SlamEngine:
     def process_points(self, points, mask, n_valid: int, odom: np.ndarray,
                        t: float) -> bool:
         """Feed one pre-converted scan (sensor-local cartesian points,
-        front-packed mask) — the native RSLG stream's ingest path."""
-        self._raise_backend_error()
-        if not self._pass_move_gate(odom, t):
-            return False
-        return self._process_gated(points, mask, n_valid, odom, t)
+        front-packed mask) — the native RSLG stream's ingest path, spanned
+        as ``process`` is."""
+        with self.timers.root("scan", self.diag.scans_in):
+            with self.timers.stage("ingest"):
+                self._raise_backend_error()
+                if not self._pass_move_gate(odom, t):
+                    return False
+            return self._process_gated(points, mask, n_valid, odom, t)
 
     def _pass_move_gate(self, odom: np.ndarray, t: float) -> bool:
         """Record the odometry sample (de-distortion and ``pose_at`` read
@@ -649,7 +656,10 @@ class SlamEngine:
         """Run the front-end step on an already-gated, already-converted
         scan (both ingest paths funnel here). The step and the bookkeeping of
         a kept scan (store, trajectory, map→odom) are one critical section
-        against corrections from the asynchronous worker."""
+        against corrections from the asynchronous worker. Spanned as the
+        stages ``frontend_prepare``, ``frontend_step``, ``frontend_commit``
+        (which starts under the lock and ends outside it) and the back
+        end's."""
         self._prev_process_time = self._last_process_time
         self._last_process_time = t
         np_points = np.asarray(points, np.float32)
@@ -659,71 +669,78 @@ class SlamEngine:
             return self._process_pipelined(np_points, np_mask, int(n_valid), odom, t)
         dev = self.device
         windowed = self.config.use_running_range_scan_match and len(self.store) > 0
-        with self._state_lock:
-            # grow the pub map BEFORE the step so this scan lands unclipped
-            # (UpdateBound runs inside UpdateMapByRange in the reference,
-            # grid_map_base.h:257-274); the predicted pose is within the
-            # search window of the matched pose
-            self._maybe_grow_pub(self._predict_pose_host(odom), np_points,
-                                 np_mask)
-            fused_in = None
-            if (self._fused_backend and not self.config.use_running_range_scan_match
-                    and len(self.store) > 0):
-                fused_in = self._prepare_fused(
-                    *self._predict_chains(np_points, np_mask, odom))
-            t0 = _time.perf_counter()
-            with self.timers.stage("frontend_step"):
-                if windowed:
-                    # windowed match path (slam_processor.cpp:134-159): the
-                    # running-range window scans are the match map source,
-                    # gathered on the device from the store mirror by id
-                    scan = (torch.as_tensor(np_points, device=dev),
-                            torch.as_tensor(np_mask, device=dev), int(n_valid),
-                            torch.as_tensor(odom, dtype=torch.float32, device=dev))
-                    self.state, info = frontend_step_windowed(
-                        self.fspec, self.state,
-                        *self.store.running_range_arrays(), *scan,
-                        timers=self.timers)
-                    s = info.summary
-                    self.diag.eager_steps += 1
+        timers = self.timers
+        commit = timers.stage("frontend_commit")
+        try:
+            with self._state_lock:
+                with timers.stage("frontend_prepare"):
+                    # grow the pub map BEFORE the step so this scan lands
+                    # unclipped (UpdateBound runs inside UpdateMapByRange in
+                    # the reference, grid_map_base.h:257-274); the predicted
+                    # pose is within the search window of the matched pose
+                    self._maybe_grow_pub(self._predict_pose_host(odom), np_points,
+                                         np_mask)
+                    fused_in = None
+                    if (self._fused_backend
+                            and not self.config.use_running_range_scan_match
+                            and len(self.store) > 0):
+                        fused_in = self._prepare_fused(
+                            *self._predict_chains(np_points, np_mask, odom))
+                with timers.stage("frontend_step"):
+                    if windowed:
+                        # windowed match path (slam_processor.cpp:134-159):
+                        # the running-range window scans are the match map
+                        # source, gathered on the device from the store
+                        # mirror by id
+                        scan = (torch.as_tensor(np_points, device=dev),
+                                torch.as_tensor(np_mask, device=dev), int(n_valid),
+                                torch.as_tensor(odom, dtype=torch.float32, device=dev))
+                        self.state, info = frontend_step_windowed(
+                            self.fspec, self.state,
+                            *self.store.running_range_arrays(), *scan,
+                            timers=timers)
+                        s = info.summary
+                        self.diag.eager_steps += 1
+                    else:
+                        s = self._blocking_step(np_points, np_mask, int(n_valid), odom,
+                                                t, fused_in)
+                commit.__enter__()
+                timers.device_resolve()          # the step's read has waited
+                self.last_summary = s
+                # the step read ONE packed vector — pose + cov + gates, and
+                # the chain rows of a fused step
+                accepted = bool(s[12] > 0.5)
+                pose = s[:3].copy()
+                cov = s[3:12].reshape(3, 3).copy()
+                # summary's pose IS the new state.pose, so the mirror updates
+                # unconditionally
+                self._host_pose = pose.copy()
+                self._publish_pub_arrays()
+
+                if not accepted:
+                    self.diag.scans_dropped_gate += 1
+                    return False
+
+                self.diag.scans_processed += 1
+                if self.config.match_map_window > 0:
+                    self._maybe_recenter(pose)
                 else:
-                    s = self._blocking_step(np_points, np_mask, int(n_valid), odom, t,
-                                            fused_in)
-            self.last_summary = s
-            # the step read ONE packed vector — pose + cov + gates, and the
-            # chain rows of a fused step
-            accepted = bool(s[12] > 0.5)
-            pose = s[:3].copy()
-            cov = s[3:12].reshape(3, 3).copy()
-            # summary's pose IS the new state.pose, so the mirror updates
-            # unconditionally
-            self._host_pose = pose.copy()
-            self._publish_pub_arrays()
-            self.diag.match_time_s += _time.perf_counter() - t0
-
-            if not accepted:
-                self.diag.scans_dropped_gate += 1
-                return False
-
-            self.diag.scans_processed += 1
-            if self.config.match_map_window > 0:
-                self._maybe_recenter(pose)
-            else:
-                self._check_world_bounds(pose)
-            self._last_kept_odom = odom.copy()
-            self._move_ref_odom = self._last_kept_odom
-            scan_id = self.store.add(np_points, np_mask, n_valid, pose, odom, t,
-                                     dev_row=fused_in is not None)
-            self.trajectory.append((t, pose))
-            self._update_map_to_odom(pose, odom)
-        if self.on_pose is not None:
-            self.on_pose(t, pose.copy())
-        if (self.map_snapshot_every > 0 and self.on_map_snapshot is not None
-                and len(self.store) % self.map_snapshot_every == 0):
-            self.on_map_snapshot(len(self.store), self.get_pub_map())
-        self._ensure_pub_covers(pose, np_points, np_mask)
-
-        prematched = self._prematched(fused_in, s[15:])
+                    self._check_world_bounds(pose)
+                self._last_kept_odom = odom.copy()
+                self._move_ref_odom = self._last_kept_odom
+                scan_id = self.store.add(np_points, np_mask, n_valid, pose, odom, t,
+                                         dev_row=fused_in is not None)
+                self.trajectory.append((t, pose))
+                self._update_map_to_odom(pose, odom)
+            if self.on_pose is not None:
+                self.on_pose(t, pose.copy())
+            if (self.map_snapshot_every > 0 and self.on_map_snapshot is not None
+                    and len(self.store) % self.map_snapshot_every == 0):
+                self.on_map_snapshot(len(self.store), self.get_pub_map())
+            self._ensure_pub_covers(pose, np_points, np_mask)
+            prematched = self._prematched(fused_in, s[15:])
+        finally:
+            commit.__exit__(None, None, None)
         if self.synchronous_backend:
             self._pending_backend.append((scan_id, cov, prematched))
             self.process_backend()
@@ -823,35 +840,45 @@ class SlamEngine:
         """Copy the staged ``host`` vector (a scan of ``P`` points) into the
         program's input and run it (a replay on the card); returns its packed
         output on the device, read nothing. Counts the capture, replay or
-        eager step in ``diag``."""
-        prog = self._program(kind, P, ids_shape)
-        prog.staged.copy_(host, non_blocking=True)
-        out = prog()
-        d = self.diag
-        if prog.last == "eager":
-            d.eager_steps += 1
-        else:
-            name = kind if ids_shape is None else f"{kind}_b{ids_shape[0]}"
-            d.graph_replays += 1
-            d.replays_by_key[name] = d.replays_by_key.get(name, 0) + 1
-            if prog.last == "capture":
-                d.graph_captures += 1
-                d.captures_by_key[name] = d.captures_by_key.get(name, 0) + 1
+        eager step in ``diag``. Spanned as ``dispatch_lookup`` (the program
+        by its key and signature) and ``dispatch_replay``; a replay's device
+        time goes to ``device.step`` where ``timers.device_timing`` is set."""
+        timers = self.timers
+        with timers.stage("dispatch_lookup"):
+            prog = self._program(kind, P, ids_shape)
+        with timers.stage("dispatch_replay"):
+            prog.staged.copy_(host, non_blocking=True)
+            pair = timers.device_start(self.device)
+            out = prog()
+            timers.device_stop(pair, "device.step", prog.last == "replay")
+            d = self.diag
+            if prog.last == "eager":
+                d.eager_steps += 1
+            else:
+                name = kind if ids_shape is None else f"{kind}_b{ids_shape[0]}"
+                d.graph_replays += 1
+                d.replays_by_key[name] = d.replays_by_key.get(name, 0) + 1
+                if prog.last == "capture":
+                    d.graph_captures += 1
+                    d.captures_by_key[name] = d.captures_by_key.get(name, 0) + 1
         return out
 
     def _blocking_step(self, np_points, np_mask, n_valid: int, odom, t: float,
                        fused_in) -> np.ndarray:
         """One blocking front-end step through its program — the fused one
         (chain batch and store row on the device) where ``fused_in`` is
-        given — and its one host read: the packed summary (float64)."""
-        ids, slot, kind = None, 0, "frontend"
-        if fused_in is not None:
-            with self.store._lock:
-                self.store.device_arrays(reserve=1)
-                slot = self.store._dev_count
-            ids, kind = fused_in["ids"], "fused"
-            self.diag.fused_steps += 1
-        host = self._stage_scan(np_points, np_mask, n_valid, odom, t, ids, slot)
+        given — and its one host read: the packed summary (float64). The
+        store slot and the staged vector are the stage ``dispatch_stage``."""
+        with self.timers.stage("dispatch_stage"):
+            ids, slot, kind = None, 0, "frontend"
+            if fused_in is not None:
+                with self.store._lock:
+                    self.store.device_arrays(reserve=1)
+                    slot = self.store._dev_count
+                ids, kind = fused_in["ids"], "fused"
+                self.diag.fused_steps += 1
+                self.backend.fused_rows_run += ids.shape[0]
+            host = self._stage_scan(np_points, np_mask, n_valid, odom, t, ids, slot)
         packed = self._run_program(kind, host, np_points.shape[0],
                                    None if ids is None else ids.shape)
         with self.timers.stage("frontend_fetch"):
@@ -970,21 +997,23 @@ class SlamEngine:
 
     def _backend_pass(self, batch: list[tuple]):
         """One back-end pass over queued ``(scan_id, cov, prematched)`` items:
-        a graph update for each, then one loop-closure attempt at the last."""
-        t0 = _time.perf_counter()
-        with self.timers.stage("backend_update"):
-            for sid, cov, pre in batch:
-                pre = self._fresh_prematched(pre)
-                self.backend.update_graph(sid, cov,
-                                          prematched=(pre or {}).get("near"))
-        with self.timers.stage("backend_loop_closure"):
-            pre = self._fresh_prematched(batch[-1][2])
-            self.backend.try_close_loop(batch[-1][0],
-                                        prematched=(pre or {}).get("loop"))
+        a graph update for each, then one loop-closure attempt at the last.
+        While a profiler records, the pass is the span
+        ``slam.backend_pass/<id>``, ``id`` the store id of that last scan."""
+        timers = self.timers
+        with timers.root("backend_pass", batch[-1][0]):
+            with timers.stage("backend_update"):
+                for sid, cov, pre in batch:
+                    pre = self._fresh_prematched(pre)
+                    self.backend.update_graph(sid, cov,
+                                              prematched=(pre or {}).get("near"))
+            with timers.stage("backend_loop_closure"):
+                pre = self._fresh_prematched(batch[-1][2])
+                self.backend.try_close_loop(batch[-1][0],
+                                            prematched=(pre or {}).get("loop"))
         self.diag.loop_closures = self.backend.num_loop_closures
         self.diag.backend_batches += 1
         self.diag.backend_batch_max = max(self.diag.backend_batch_max, len(batch))
-        self.diag.backend_time_s += _time.perf_counter() - t0
 
     # ---- the pipelined fetch (JAX engine.py:849-1082) ----
 
@@ -1020,47 +1049,48 @@ class SlamEngine:
         and capacity events drain the pipeline first. Host bookkeeping
         reconciles ``pipeline_depth`` scans behind. Returns True
         optimistically (acceptance is known at reconcile; the kept-scan
-        accounting is exact, only this return value is early)."""
-        t0 = _time.perf_counter()
-        if any(e["may_rewrite_maps"] for e in self._inflight):
-            # a scan in flight may close a loop or recenter the match maps
-            # when it is reconciled: that happens before the next scan is
-            # matched, as in the blocking engine
-            self._drain_pipeline()
-        pred = self._predict_pose_host(odom)
-        # pub growth precedes the stamp; the pad covers the match-vs-predict
-        # translation plus the pipeline's extra odometry lag
-        bmin, bmax = self._scan_world_bbox(pred, np_points, np_mask)
-        pad = self._search_pad() + 0.25
-        if self._pub_growth_needed(bmin - pad, bmax + pad):
-            self._drain_pipeline()
-            with self._state_lock:
-                self._grow_pub_to_bbox(bmin - pad, bmax + pad)
-        # the store's device capacity never grows mid-pipeline (a re-upload
-        # from the host would drop the in-flight rows)
-        need = len(self.store) + len(self._inflight) + 2
-        if self.store._dev_points is None or need > self.store._dev_cap:
-            self._drain_pipeline()
-            self.store.device_arrays(reserve=self.pipeline_depth + 2)
-        self._select_pipe_bucket()
-        near, loop = self._predict_chains(np_points, np_mask, odom,
-                                          pending=self._inflight)
-        fused_in = None
-        if self._fused_backend:
-            fused_in = self._prepare_fused(near, loop, cap=self._pipe_bucket)
-        if not self._pipe_seeded:
-            # the device move gate needs the time of the last scan through
-            # the gate (blocking steps do not carry it)
-            lt = (self._prev_process_time - self._dev_time_origin
-                  if self._prev_process_time is not None else -3.4e38)
-            self.state.last_step_time.fill_(lt)
-            self._pipe_seeded = True
-        seed = not self._inflight
-        if seed:
-            # an empty pipeline: the host store is whole, so the device rows
-            # and poses are brought up to it (after a correction the poses
-            # are stale) and the cursor starts at its length
-            self.store.device_arrays()
+        accounting is exact, only this return value is early). Spanned as
+        ``frontend_prepare`` up to the dispatch, then ``pipe_dispatch``."""
+        with self.timers.stage("frontend_prepare"):
+            if any(e["may_rewrite_maps"] for e in self._inflight):
+                # a scan in flight may close a loop or recenter the match maps
+                # when it is reconciled: that happens before the next scan is
+                # matched, as in the blocking engine
+                self._drain_pipeline()
+            pred = self._predict_pose_host(odom)
+            # pub growth precedes the stamp; the pad covers the match-vs-predict
+            # translation plus the pipeline's extra odometry lag
+            bmin, bmax = self._scan_world_bbox(pred, np_points, np_mask)
+            pad = self._search_pad() + 0.25
+            if self._pub_growth_needed(bmin - pad, bmax + pad):
+                self._drain_pipeline()
+                with self._state_lock:
+                    self._grow_pub_to_bbox(bmin - pad, bmax + pad)
+            # the store's device capacity never grows mid-pipeline (a re-upload
+            # from the host would drop the in-flight rows)
+            need = len(self.store) + len(self._inflight) + 2
+            if self.store._dev_points is None or need > self.store._dev_cap:
+                self._drain_pipeline()
+                self.store.device_arrays(reserve=self.pipeline_depth + 2)
+            self._select_pipe_bucket()
+            near, loop = self._predict_chains(np_points, np_mask, odom,
+                                              pending=self._inflight)
+            fused_in = None
+            if self._fused_backend:
+                fused_in = self._prepare_fused(near, loop, cap=self._pipe_bucket)
+            if not self._pipe_seeded:
+                # the device move gate needs the time of the last scan through
+                # the gate (blocking steps do not carry it)
+                lt = (self._prev_process_time - self._dev_time_origin
+                      if self._prev_process_time is not None else -3.4e38)
+                self.state.last_step_time.fill_(lt)
+                self._pipe_seeded = True
+            seed = not self._inflight
+            if seed:
+                # an empty pipeline: the host store is whole, so the device rows
+                # and poses are brought up to it (after a correction the poses
+                # are stale) and the cursor starts at its length
+                self.store.device_arrays()
         entry = self._dispatch_pipelined(np_points, np_mask, n_valid, odom, t,
                                          fused_in, seed)
         self._move_ref_odom = odom.copy()
@@ -1070,7 +1100,6 @@ class SlamEngine:
                      np_mask=np_mask.copy(), n_valid=n_valid, odom=odom.copy(),
                      t=float(t), bary=self._bary_of_pose(pred, np_points, np_mask))
         self._inflight.append(entry)
-        self.diag.match_time_s += _time.perf_counter() - t0
         while len(self._inflight) > self.pipeline_depth:
             self._reconcile_one()
         return True
@@ -1100,6 +1129,7 @@ class SlamEngine:
                                    len(self.store), seed=seed_cursor)
         if fused_in is not None:
             self.diag.fused_steps += 1
+            self.backend.fused_rows_run += ids.shape[0]
         with self._state_lock, self.timers.stage("pipe_dispatch"):
             packed = self._run_program("cursor", host_in, np_points.shape[0],
                                        None if ids is None else ids.shape)
@@ -1123,6 +1153,7 @@ class SlamEngine:
             if e["event"] is not None:
                 e["event"].synchronize()
             s = e["host_out"].numpy().astype(np.float64)
+        self.timers.device_resolve()
         self.last_summary = s
         accepted = bool(s[12] > 0.5)
         pose = s[:3].copy()
@@ -1142,13 +1173,12 @@ class SlamEngine:
             else:
                 self.diag.scans_dropped_gate += 1
             return False
-        t0 = _time.perf_counter()
         self.diag.scans_processed += 1
         # ---- commit: no nested drain until the graph vertex exists — the
         # device wrote this scan's row before any younger scan's, and store
         # ids, device rows and vertex ids must follow that order ----
         self._last_kept_odom = e["odom"].copy()
-        with self._state_lock:
+        with self._state_lock, self.timers.stage("frontend_commit"):
             scan_id = self.store.add(e["np_points"], e["np_mask"], e["n_valid"],
                                      pose, e["odom"], e["t"], dev_row=True)
             self.trajectory.append((e["t"], pose))
@@ -1193,7 +1223,6 @@ class SlamEngine:
                 self.backend.try_close_loop(scan_id,
                                             prematched=(pre or {}).get("loop"))
         self.diag.loop_closures = self.backend.num_loop_closures
-        self.diag.backend_time_s += _time.perf_counter() - t0
         return True
 
     # ---- asynchronous back end (the reference's back-end thread) ----
@@ -1458,8 +1487,13 @@ class SlamEngine:
         the stored scans within beam reach of the new window — exactly those
         (the JAX package pads the batch to size buckets only to bound
         recompilation). Keeps the host mirrors of both offsets in step.
-        Callers hold the state lock."""
-        t0 = _time.perf_counter()
+        Callers hold the state lock. Spanned as ``recenter``."""
+        with self.timers.stage("recenter"):
+            self._restamp_match_maps(fine_off, coarse_off, upto)
+        self.diag.recenters += 1
+
+    def _restamp_match_maps(self, fine_off: np.ndarray, coarse_off: np.ndarray,
+                            upto: int | None):
         cfg = self.config
         fs, cs = self.fspec.fine_spec, self.fspec.coarse_spec
         self._host_fine_off = np.asarray(fine_off, np.float64)
@@ -1478,8 +1512,6 @@ class SlamEngine:
             torch.as_tensor(fine_off, **f32), *self.store.gather(ids),
             bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
         self._install_maps(coarse=coarse, fine=fine)
-        self.diag.recenters += 1
-        self.diag.recenter_time_s += _time.perf_counter() - t0
 
     # ---- corrections (CorrectPoseAndMap, slam_processor.cpp:329-370) ----
 
@@ -1611,7 +1643,9 @@ class SlamEngine:
             if prog.staged.is_cuda:
                 host = host.pin_memory()
             prog.staged.copy_(host, non_blocking=True)
+            pair = self.timers.device_start(self.device)
             prog()
+            self.timers.device_stop(pair, "device.rebuild", prog.last == "replay")
         d, name = self.diag, f"rebuild_{b}"
         if prog.last != "eager":
             d.replays_by_key[name] = d.replays_by_key.get(name, 0) + 1

@@ -98,7 +98,7 @@ def main() -> int:
                 tengine.SlamEngine.run_stream = orig
                 tengine.SlamEngine._backend_pass = orig_pass
             eng = seen["engine"]
-            back, diag = eng.backend, eng.diag
+            back, diag, stages = eng.backend, eng.diag, eng.timers.as_dict()
             bar = back.num_fused_misses + back.num_solves + 4
             print(json.dumps({
                 "tag": args.tag, "run": k, "rc": rc, "device": power.strip(),
@@ -110,7 +110,9 @@ def main() -> int:
                 "fused_misses": back.num_fused_misses, "async_bar": bar,
                 "within_async_bar": back.num_chain_dispatches <= bar,
                 "replay_ms_per_scan_fed": seen["replay_s"] / diag.scans_in * 1e3,
-                "frontend_s": diag.match_time_s, "backend_s": diag.backend_time_s,
+                "frontend_s": stages.get("frontend_step", {}).get("total_s", 0.0),
+                "backend_s": sum(stages.get(k, {}).get("total_s", 0.0)
+                                 for k in ("backend_update", "backend_loop_closure")),
                 "backend_batch_max": diag.backend_batch_max,
                 "worker_longest_pass_s": max(passes, default=0.0),
                 "solve_and_correct_s": back.solve_time_s,
