@@ -101,8 +101,10 @@ against the unsharded call; the batched chain matcher with a centre per row
 and the batched scan matcher), ``parallel_spa`` (the edge-sharded solve of
 a 1024-node loop graph and of leg 3's pose graph, one NCCL rank at the full
 budget and two gloo ranks at the scaling workload's, and the dense solve,
-against the single solve) and ``log_odds`` (the log-odds map over leg 3's
-kept scans, the carve kernel against the plain path on the CPU). One card
+against the single solve; the one-rank solve against the single solve's
+masked loop, bit for bit under deterministic sums) and ``log_odds`` (the
+log-odds map over leg 3's kept scans, the carve kernel against the plain
+path on the CPU). One card
 cannot show a multi-GPU number: these phases show the mechanics only.
 
 ``spa_on_device`` (after them, on leg 3's final graph, padded to JAX's
@@ -110,19 +112,26 @@ buckets) shows the pose-graph solve staying on the card: the engine's solve
 makes one host read (its result), ``lm_solve`` none under
 ``set_sync_debug_mode("error")``; a solve replays its bucket's program 50
 times, or captures it (at most once a bucket) and replays it 49; the
-graph-replayed solve is timed beside the eager masked one and the dense one
-and held against the eager one under deterministic sums (1e-4 m, 1e-5
-relative cost) and against the dense optimum (5 %, 0.05 m).
+graph-replayed solve (its CG the kernel K5) is timed beside the eager
+masked one and the dense one and held against the eager one under
+deterministic sums (``LEG3_SOLVE_BARS``: 2.5e-2 m, 1e-3 relative cost, which
+solves with a faulty K5 must fail) and against the dense optimum (5 %,
+0.05 m).
 
 ``closure_program`` (right after it, on leg 3's final state) holds the loop
 closure's programs: leg 3's lone closure rebuilt its maps eagerly (no
 rebuild capture); the solve program's first and second calls, with the LM
-iterations and CG steps the masked loop counted and their seconds; two
+iterations and CG steps taken and their seconds, the CG one launch of the
+kernel ``spa_pcg`` an LM iteration (50 a solve, CG steps run = needed); two
 corrections in a row through ``Backend.force_optimize``, the second making
 no capture in the solve or the rebuild, each with its
-``solve_and_correct_s``; and the correction rebuild's program (one carve
-per bucket slot) against the eager rebuild from the exact rows, every map
-bit for bit.
+``solve_and_correct_s``; the correction rebuild's program (one carve per
+bucket slot) against the eager rebuild from the exact rows, every map bit
+for bit; K5 alone held against the masked ``_pcg`` at leg 3's graph and
+at node buckets 512-4096 (``k5_held``: the same steps, x against float64),
+the program and the eager masked loop timed there, and ptxas's report of
+the kernel (no spills). Every shape any phase launches K5 at is held so
+too and listed in the ``kernels`` line (``spa_pcg[<nodes>x<edges>]``).
 
 The last phase, ``bench_headline``, is ``python -m roborts_slam_tpu_torch
 bench`` (``bench/headline.py``): the two correlation kernels held against the
@@ -146,6 +155,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -622,19 +632,23 @@ def parallel_phases(eng3, rr_config, rr_fspec, rr_bspec, dev, acct, backend=None
         return d["cost_diff"] <= 1e-3 * abs(float(ref_cost)) + 1e-6 and d["max_pose_diff"] <= 1e-3
 
     # the solves: one NCCL rank at the full budget, two gloo ranks at the
-    # scaling workload's, each against the single solve at the same budget.
+    # scaling workload's, each against the single solve's masked loop at the
+    # same budget.
     # The card's segment sums (index_add_) add in atomic order, so two solves
     # of one graph part in the last bits, and 50 LM iterations in a flat
-    # valley carry that to ~1e-3: the full-budget single solve runs under
-    # deterministic algorithms, the one-rank solve once so (the same sums:
-    # bit for bit) and once in the default mode, whose distance is reported
-    # beside the cost bar
+    # valley carry that to ~1e-3: the full-budget single solve's masked loop
+    # (``lm_solve(replay=False)``, the sharded solve's counterpart: the
+    # program's CG is the kernel, other sums) runs under deterministic
+    # algorithms, the one-rank solve once so (the same sums: bit for bit)
+    # and once in the default mode, whose distance is reported beside the
+    # cost bar; the program's solve is printed beside it, held to the cost
+    # bar
     spa_said = {}
     for gi, (gname, g) in enumerate((("loop_1024", graph_1024), ("leg3", graph_leg3))):
         said = {"nodes": int(g.poses.shape[0]), "edges": int(g.edge_ij.shape[0])}
         refs = {}
         syncs = spa.host_syncs
-        (p, c, it), sec = timed(lambda: spa.solve_pose_graph(g, *budget_scaling))
+        (p, c, it), sec = timed(lambda: spa.lm_solve(g, *budget_scaling, replay=False))
         said["single_scaling"] = {"seconds": sec, "iters": int(it), "cost": float(c),
                                   "host_syncs": spa.host_syncs - syncs}
         refs["scaling"] = (p, c)
@@ -645,13 +659,17 @@ def parallel_phases(eng3, rr_config, rr_fspec, rr_bspec, dev, acct, backend=None
                "host_syncs": spa.host_syncs - syncs, "all_reduces": gmesh1.all_reduces - reduces}
         with deterministic():
             syncs = spa.host_syncs
-            (pd_, cd_, itd), sec = timed(lambda: spa.solve_pose_graph(g, *budget_full))
+            (pd_, cd_, itd), sec = timed(lambda: spa.lm_solve(g, *budget_full, replay=False))
             said["single_full_deterministic"] = {"seconds": sec, "iters": int(itd),
                                                  "cost": float(cd_),
                                                  "host_syncs": spa.host_syncs - syncs}
             (pd1, cd1, _), sec_one = timed(lambda: solve_pose_graph_sharded(
                 g, gmesh1, "graph", *budget_full))
+            (pk, ck, itk), sec_k = timed(lambda: spa.solve_pose_graph(g, *budget_full))
         refs["full"] = (pd_, cd_)
+        said["single_full_program"] = {"seconds": sec_k, "iters": int(itk), "cost": float(ck),
+                                       **compared((pk, ck), refs["full"])}
+        assert said["single_full_program"]["cost_diff"] <= 1e-3 * abs(float(cd_)) + 1e-6, said
         one_said.update(compared((p1, c1), refs["full"]))
         assert one_said["cost_diff"] <= 1e-3 * abs(float(cd_)) + 1e-6, (gname, one_said)
         one_said["deterministic"] = {"seconds": sec_one, **compared((pd1, cd1), refs["full"])}
@@ -1159,6 +1177,65 @@ def passes_said(passes) -> dict:
             "worker_queue_max": max((k for _, k in passes), default=0)}
 
 
+# leg 3's solve against the eager masked loop under deterministic sums:
+# (pose m, relative cost). On an H100, sound: the program (K5) 1.25e-3 m,
+# 1.3e-4; the masked loop's own atomic sums 6.0e-3–1.1e-2 m, 1.6e-4.
+# Faulty K5: one CG step an LM iteration 1.38 m, 2.8; H·p without the
+# edges' target side 5.7e-2 m, 21. Each bar lies between, with room on
+# both sides; a faulty K5 must exceed one (``spa_on_device``).
+LEG3_SOLVE_BARS = (2.5e-2, 1e-3)
+
+
+def k5_solve(spa, data, fault: str):
+    """The masked LM loop launched eagerly with its CG a faulty K5, for a
+    reading of what the bars of ``spa_on_device`` must catch: ``fault``
+    "one_step" one CG step an LM iteration, "one_sided" H·p without the
+    target side of every edge (its Jacobian zero). Returns (poses, cost,
+    iterations)."""
+    from roborts_slam_tpu_torch.ops.cuda import spa_pcg
+
+    ptr, entries = spa_pcg.incidence(data.edge_ij, data.poses.shape[0])
+
+    def pcg(lin, b, lam, done):
+        pinv = spa._preconditioner(lin, data, lam).contiguous()
+        jb = torch.zeros_like(lin.jb) if fault == "one_sided" else lin.jb
+        return spa_pcg.pcg(lin.ja, jb, lin.info, lin.gauge, pinv, b, lam, done,
+                           data.edge_ij, ptr, entries, 1 if fault == "one_step" else 100, 1e-6)
+
+    with patched(spa, "_lm_iteration", lambda orig: lambda *a: orig(*a, pcg=pcg)):
+        s = spa._masked_solve(data, 50, 100)
+    return s.poses, s.cost, s.it
+
+
+_script = {}
+
+
+def spa_script():
+    """``scripts/torch_spa_on_device.py`` as a module, loaded once."""
+    import importlib.util
+
+    if "m" not in _script:
+        path = Path(__file__).resolve().parent / "scripts" / "torch_spa_on_device.py"
+        spec = importlib.util.spec_from_file_location("torch_spa_on_device", path)
+        _script["m"] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_script["m"])
+    return _script["m"]
+
+
+def k5_held(k: dict) -> bool:
+    """Whether ``kernel_alone``'s reading holds K5 to the masked ``_pcg``:
+    the same steps (or the masked loop's ‖r‖ within 1e-4 of the threshold
+    where they part), its bits repeated, x within 1e-5 of ‖x‖ of the float64
+    loop after the early steps, and after all its steps within 1e-5 or, where
+    float32's rounding has grown past that, within 3 times the masked
+    float32 loop's own gap (on leg 3's graph at 100 steps, an H100: K5
+    2.35e-5)."""
+    return (k["repeats_its_bits"]
+            and (k["steps"] == k["masked_steps"] or bool(k["near_threshold"]))
+            and k["x_gap_rel_early"] <= 1e-5
+            and k["x_gap_rel"] <= max(1e-5, 3 * k["plain_x_gap_rel"]))
+
+
 def spa_on_device(eng3, dev, report3) -> dict:
     """The phase ``spa_on_device``: the pose-graph solve on leg 3's final
     graph. The engine's own solve (``Backend._solve_and_correct``, its
@@ -1169,12 +1246,14 @@ def spa_on_device(eng3, dev, report3) -> dict:
     synchronisation raises); then, from the final poses perturbed (seed 0,
     node 0 kept: a solve that starts off the optimum, as a closure's does),
     the graph-replayed solve, the eager masked one and the dense one timed,
-    with CUDA graph captures and replays counted; the graph-replayed solve
-    held against the eager masked one under deterministic sums at the SPA
-    bars (1e-4 m, 1e-5 relative cost; the same operations, so bit for bit
-    expected) and printed beside it in the default mode (atomic sums); and
-    from the final poses, the optimum, against the dense solve at the bar of
-    ``parallel_spa`` (5 %, 0.05 m)."""
+    with CUDA graph captures and replays counted. Under deterministic sums
+    the program (its CG the kernel K5) against the eager masked loop at
+    ``LEG3_SOLVE_BARS`` and twice, bit for bit; the bars lie between what
+    sound solves read (the program; the masked loop's own atomic sums) and
+    what solves with a faulty K5 read (``k5_solve``: one CG step an LM
+    iteration; H·p without the edges' target side), every one of which must
+    fail them. From the final poses, the optimum, against the dense solve at
+    the bar of ``parallel_spa`` (5 %, 0.05 m)."""
     from roborts_slam_tpu_torch.backend import spa
 
     back, n = eng3.backend, len(eng3.store)
@@ -1234,8 +1313,15 @@ def spa_on_device(eng3, dev, report3) -> dict:
     said["replayed"].update(iters=int(rep[2]), cost=float(rep[1]))
     said["replayed_vs_eager_default_mode"] = compared(rep, eager)
     with deterministic():
-        said["replayed_vs_eager_deterministic"] = compared(spa.solve_pose_graph(start),
-                                                           spa.lm_solve(start, replay=False))
+        eager_det = spa.lm_solve(start, replay=False)
+        kernel_runs = [spa.solve_pose_graph(start) for _ in range(2)]
+        said["replayed_vs_eager_deterministic"] = compared(kernel_runs[0], eager_det)
+        said["replayed_repeats_its_bits"] = compared(kernel_runs[1], kernel_runs[0])["bit_equal"]
+        said["eager_default_mode_vs_deterministic"] = compared(eager, eager_det)
+        said["faulty_k5_vs_eager_deterministic"] = {
+            fault: compared(k5_solve(spa, start, fault), eager_det)
+            for fault in ("one_step", "one_sided")}
+    said["leg3_solve_bars"] = LEG3_SOLVE_BARS
     opt = spa.solve_pose_graph(final)
     said["dense_vs_replayed_from_optimum"] = compared(spa.solve_pose_graph_dense(final), opt)
     emit({"phase": "spa_on_device", **said})
@@ -1246,8 +1332,13 @@ def spa_on_device(eng3, dev, report3) -> dict:
     assert eng["captures"] == 0 or not program_existed, eng
     assert said["replayed"]["captures"] == 0 and said["replayed"]["replays"] == 50, said
     assert said["eager_masked"]["captures"] == 0, said
-    det = said["replayed_vs_eager_deterministic"]
-    assert det["max_pose_diff"] <= 1e-4 and det["cost_rel_diff"] <= 1e-5, det
+    pose_bar, cost_bar = LEG3_SOLVE_BARS
+    for sound in ("replayed_vs_eager_deterministic", "eager_default_mode_vs_deterministic"):
+        d = said[sound]
+        assert d["max_pose_diff"] <= pose_bar and d["cost_rel_diff"] <= cost_bar, (sound, d)
+    for fault, d in said["faulty_k5_vs_eager_deterministic"].items():
+        assert d["max_pose_diff"] > pose_bar or d["cost_rel_diff"] > cost_bar, (fault, d)
+    assert said["replayed_repeats_its_bits"], said
     d = said["dense_vs_replayed_from_optimum"]
     assert d["cost_rel_diff"] < 0.05 and d["max_pose_diff"] < 0.05, d
     assert all(bool(torch.isfinite(t).all()) for t in (*rep[:2], *eager[:2], *dense))
@@ -1275,8 +1366,9 @@ def fused_lags(SlamEngine):
 
 def closure_program(eng3, dev) -> dict:
     """The phase ``closure_program`` on leg 3's final state: the loop
-    closure's two programs, and whether this PyTorch could capture
-    conditional nodes (the solve replays the masked iteration either way).
+    closure's two programs, the solve's CG kernel (K5, ``spa_pcg``) in
+    its iteration, and whether this PyTorch could capture conditional nodes
+    (no longer needed: the kernel stops the CG itself).
     (0) Leg 3's one closure rebuilt its maps
     eagerly from the exact rows and captured no rebuild program (a
     rebuild's capture waits for a bucket's second correction). (1) From the
@@ -1294,16 +1386,26 @@ def closure_program(eng3, dev) -> dict:
     bit, both timed. (4) ``warm_backend`` at leg 3's buckets keeps every
     map and counter. (5) What the corrections in a bucket pay: the rebuild
     made anew (an eager call, the capture, a replay) and the solve's
-    program made anew (a capture, a replay)."""
+    program made anew (a capture, a replay). (6) The kernel: its path
+    asserted (every solve's program runs it, 50 launches a solve, CG steps
+    run = needed on the back end's counters); K5 alone held against the
+    masked ``_pcg`` (``k5_held``) at the first LM iteration of leg 3's
+    perturbed graph and of each node bucket 512 / 1024 / 2048 / 4096
+    (``scripts/torch_spa_on_device.py``'s ``bucket_lines``), with its ms a
+    launch and µs a CG step; device ms a solve at those buckets with the
+    program and with the masked loop launched eagerly; and ptxas's report
+    of it (registers, shared memory, no spills)."""
     from roborts_slam_tpu_torch.backend import spa
     from roborts_slam_tpu_torch.engine import _rebuild_all_maps
     from roborts_slam_tpu_torch.models.grid_map import CountMap, ProbMap
+    from roborts_slam_tpu_torch.ops.cuda import spa_pcg
 
     back, diag, n = eng3.backend, eng3.diag, len(eng3.store)
     said = {"closure_path": diag.closure_path, "rebuild_path": diag.rebuild_path,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "if_nodes_in_torch": hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node"),
-            "solve_iteration": "masked: every CG step runs (no conditional-node path)",
+            "solve_iteration": "cg kernel: one launch an LM iteration, the CG steps JAX's "
+                               "loop takes",
             "leg3_eager_rebuilds": diag.eager_rebuilds,
             "leg3_rebuild_captures": {k: v for k, v in diag.captures_by_key.items()
                                       if k.startswith("rebuild_")}}
@@ -1316,6 +1418,7 @@ def closure_program(eng3, dev) -> dict:
     said["solve_program"] = {}
     for call in ("first", "second"):
         torch.cuda.synchronize()
+        launches = spa_pcg.pcg_launches
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         t = time.perf_counter()
@@ -1327,11 +1430,13 @@ def closure_program(eng3, dev) -> dict:
         said["solve_program"][call] = {
             "captured": prog.last == "capture", "host_seconds": host,
             "seconds": time.perf_counter() - t, "device_ms": ev[0].elapsed_time(ev[1]),
-            "lm_iters": int(got[-2]), "cg_steps": int(got[-1])}
+            "lm_iters": int(got[-2]), "cg_steps": int(got[-1]),
+            "kernel_launches": spa_pcg.pcg_launches - launches}
 
     for k in (1, 2):
         before = (dict(diag.captures_by_key), dict(diag.replays_by_key), back.solve_time_s,
-                  diag.closure_capture_s, diag.eager_rebuilds)
+                  diag.closure_capture_s, diag.eager_rebuilds, back.cg_steps_needed,
+                  back.cg_steps_run)
         torch.cuda.synchronize()
         with graph_calls() as calls:
             t = time.perf_counter()
@@ -1347,7 +1452,9 @@ def closure_program(eng3, dev) -> dict:
             "eager_rebuilds": diag.eager_rebuilds - before[4],
             "graph_captures": calls["captures"], "graph_replays": calls["replays"],
             "capture_s": diag.closure_capture_s - before[3],
-            "lm_iters": diag.solve_lm_iters, "cg_steps": diag.solve_cg_steps}
+            "lm_iters": diag.solve_lm_iters, "cg_steps": diag.solve_cg_steps,
+            "cg_steps_needed": back.cg_steps_needed - before[5],
+            "cg_steps_run": back.cg_steps_run - before[6], "closure_path": diag.closure_path}
 
     st, cfg, fs = eng3.state, eng3.config, eng3.fspec
     torch.cuda.synchronize()
@@ -1417,6 +1524,13 @@ def closure_program(eng3, dev) -> dict:
         cost[f"solve_{call}_call"] = prog.last
         cost[f"solve_{call}_capture_s"] = prog.last_capture_s
     said["bucket_costs"] = cost
+    script = spa_script()
+    said["k5_leg3"] = script.kernel_alone(spa, start)
+    said["buckets"] = [{k: line[k] for k in ("bucket", "program", "device_ms_per_solve",
+                                             "lm_iters", "cg_steps", "start_cost", "cost",
+                                             "kernel")
+                        if k in line} for line in script.bucket_lines((512, 1024, 2048, 4096))]
+    said["ptxas"] = spa_pcg.ptxas_report()
     emit({"phase": "closure_program", **said})
     assert said["leg3_eager_rebuilds"] >= 1 and not said["leg3_rebuild_captures"], said
     second = said["correction_2"]
@@ -1428,6 +1542,22 @@ def closure_program(eng3, dev) -> dict:
     sp = said["solve_program"]
     assert not sp["second"]["captured"], sp
     assert 0 < sp["second"]["cg_steps"] <= 100 * sp["second"]["lm_iters"], sp
+    # the kernel's path: 50 launches a solve, its steps counted as run
+    assert said["closure_path"] == "graph: cg kernel", said
+    assert all(c["kernel_launches"] == 50 for c in sp.values()), sp
+    assert all(said[f"correction_{k}"]["closure_path"] == "graph: cg kernel" and
+               said[f"correction_{k}"]["cg_steps_run"] ==
+               said[f"correction_{k}"]["cg_steps_needed"] > 0 for k in (1, 2)), said
+    # the synthetic graphs' measurements are exact: both solves reach the
+    # optimum, whose cost is float32's noise (a relative gap means nothing)
+    assert all(r["cost"] <= 1e-6 * r["start_cost"] for r in said["buckets"]), said["buckets"]
+    assert [r["program"] for r in said["buckets"]] == ["kernel", "eager_masked"] * 4, \
+        said["buckets"]
+    held = [said["k5_leg3"]] + [r["kernel"] for r in said["buckets"] if "kernel" in r]
+    assert len(held) == 5 and all(k5_held(k) for k in held), held
+    assert any("spa_pcg_kernel" in ln for ln in said["ptxas"]), said["ptxas"]
+    assert not [ln for ln in said["ptxas"] if "spill" in ln and not re.search(
+        r"(?<!\d)0 bytes spill stores, 0 bytes spill loads", ln)], said["ptxas"]
     assert said["warm_backend"]["maps_kept"] and said["warm_backend"]["counters_kept"], said
     rb = said["rebuild"]
     assert rb["program_captures"] == 0 and rb["program_replays"] == 1, rb
@@ -1461,7 +1591,8 @@ def main() -> int:
     )
     from roborts_slam_tpu_torch.models.scan import LaserModel, ranges_to_packed
     from roborts_slam_tpu_torch.ops import correlative, raster, raycast
-    from roborts_slam_tpu_torch.ops.cuda import build, correlation, raycarve
+    from roborts_slam_tpu_torch.backend import spa
+    from roborts_slam_tpu_torch.ops.cuda import build, correlation, raycarve, spa_pcg
     from roborts_slam_tpu_torch.utils.geometry import transform_points
 
     dev = torch.device("cuda", 0)
@@ -1557,8 +1688,10 @@ def main() -> int:
     optional = set()      # entries that a leg need not have launched
     both_kernels = []     # every shape, both correlation kernels side by side
     # shapes held against the plain versions: (B, A, S, N, H, W) of the
-    # correlation kernels, (P, H, W) of the carve, (B, R, H, W) of the ray check
+    # correlation kernels, (P, H, W) of the carve, (B, R, H, W) of the ray
+    # check, (nodes, edges) of the SPA solve's CG
     compared_corr, compared_mark, compared_check = set(), set(), set()
+    compared_pcg = set()
 
     def compare_kernels(what, args, want):
         """Both correlation kernels on ``args`` against the plain version's
@@ -2116,20 +2249,45 @@ def main() -> int:
     def reset_counts():
         correlation.launches = correlation.launches_v2 = 0
         raycarve.mark_launches = raycarve.check_launches = 0
+        spa_pcg.pcg_launches = 0
         for by_shape in (correlation.launch_shapes, raycarve.mark_shapes,
-                         raycarve.check_shapes):
+                         raycarve.check_shapes, spa_pcg.pcg_shapes):
             by_shape.clear()
 
     def read_counts():
         return {"correlation_scores": correlation.launches,
                 "correlation_scores_v2": correlation.launches_v2,
                 "ray_mark_image": raycarve.mark_launches,
-                "bad_ray_count": raycarve.check_launches}
+                "bad_ray_count": raycarve.check_launches,
+                "spa_pcg": spa_pcg.pcg_launches}
 
     def read_shapes():
         return {"corr": dict(correlation.launch_shapes),
                 "mark": dict(raycarve.mark_shapes),
-                "check": dict(raycarve.check_shapes)}
+                "check": dict(raycarve.check_shapes),
+                "pcg": dict(spa_pcg.pcg_shapes)}
+
+    def pcg_entry(nodes, edges, leg):
+        """K5 at one solve shape, on a loop graph padded to it, held
+        against the masked ``_pcg`` (``k5_held``) and listed."""
+        data = spa_script().padded_loop_graph(spa, nodes, dev, edges)
+        k = spa_script().kernel_alone(spa, data)
+        assert k5_held(k), (leg, nodes, edges, k)
+        bms, by = bound(k["bytes"], k["operations"])
+        key = f"pcg_{nodes}x{edges}"
+        entries[key] = {
+            "name": f"spa_pcg[{nodes}x{edges}]", "route": "cuda",
+            "source": "roborts_slam_tpu_torch/ops/cuda/spa_pcg.cu",
+            "replaces": "roborts_slam_tpu/backend/spa.py:149",
+            "shape": [nodes, edges], "launches": 0, "launches_from": leg,
+            "max_abs_err": k["x_gap_rel"] * k["x_norm"], "x_gap_rel": k["x_gap_rel"],
+            "plain_x_gap_rel": k["plain_x_gap_rel"], "x_gap_rel_early": k["x_gap_rel_early"],
+            "steps": k["steps"], "masked_steps": k["masked_steps"],
+            "ms": k["ms_per_launch"], "us_per_step": k["us_per_step"],
+            "repeats_its_bits": True, "plain_ms": k["plain_ms"],
+            "bound_ms": bms, "bound_by": by, "library_ms": None, "geometry": k["geometry"]}
+        counted_as[key] = ("pcg", nodes, edges)
+        compared_pcg.add((nodes, edges))
 
     def shapes_said(shapes):
         return {kind: {"x".join(map(str, k)): v for k, v in sorted(by.items())}
@@ -2164,9 +2322,12 @@ def main() -> int:
                 before = set(entries)
                 pub_entries(ctx, ps_, leg, batches, carve=carve)
                 optional.update(set(entries) - before)
+        for nodes, edges in sorted(shapes.get("pcg", {})):
+            if (nodes, edges) not in compared_pcg:
+                pcg_entry(nodes, edges, leg)
         for kind, launched in shapes.items():
             held = {"corr": compared_corr, "mark": compared_mark,
-                    "check": compared_check}[kind]
+                    "check": compared_check, "pcg": compared_pcg}[kind]
             for k in launched:
                 assert (k[1:] if kind == "corr" else k) in held, (leg, kind, k)
         for key, e in entries.items():
@@ -3093,7 +3254,8 @@ def main() -> int:
     listed = [e for e in entries.values() if e["launches"] > 0]
     on_leg = {LEG1: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
               LEG2: ("correlation_scores[chain",),
-              LEG3: ("correlation_scores_v2[", "ray_mark_image[", "bad_ray_count["),
+              LEG3: ("correlation_scores_v2[", "ray_mark_image[", "bad_ray_count[",
+                     "spa_pcg["),
               LEG4: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
               LEG5: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
               "parallel_chain_match": ("correlation_scores[", "bad_ray_count["),

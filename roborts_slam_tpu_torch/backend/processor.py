@@ -279,8 +279,8 @@ class Backend:
         self.fused_rows_run = 0
         self.fused_rows_used = 0
         # the SPA solves' CG steps: needed (the solve's own count, read with
-        # its poses) and run (``_SOLVE_ITERS`` x ``_SOLVE_CG_ITERS`` a solve:
-        # the program and the masked eager loop run every one)
+        # its poses) and run (as many where a program ran it, its CG the
+        # kernel; ``_SOLVE_ITERS`` x ``_SOLVE_CG_ITERS`` an eager masked solve)
         self.cg_steps_needed = 0
         self.cg_steps_run = 0
         self.chain_match_time_s = 0.0     # host clock, each call ends in its fetch
@@ -652,7 +652,8 @@ class Backend:
                                "lm_iters": int(out[3 * pn + 1]),
                                "cg_steps": int(out[3 * pn + 2])}
             self.cg_steps_needed += self.last_solve["cg_steps"]
-            self.cg_steps_run += self._SOLVE_ITERS * self._SOLVE_CG_ITERS
+            self.cg_steps_run += (self.last_solve["cg_steps"] if prog is not None
+                                  else self._SOLVE_ITERS * self._SOLVE_CG_ITERS)
             self.count_solve(prog)
             if self.diag is not None:
                 self.diag.solve_lm_iters = self.last_solve["lm_iters"]

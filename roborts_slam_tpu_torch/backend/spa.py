@@ -24,8 +24,11 @@ On the card an unsharded solve runs the ``SolveProgram`` of its padded
 shape (``PoseGraph.as_solver_data`` pads to JAX's buckets), the counterpart
 of JAX's one jitted program per bucket: one LM iteration captured into a
 CUDA graph at the first solve in a bucket and replayed by every later one.
-Every one of the ``max_iters`` × ``cg_iters`` masked steps runs on the
-device; the steps JAX's loops would take are counted beside them.
+Its preconditioned CG is one hand-written kernel (``ops/cuda/spa_pcg.cu``)
+that stops on JAX's residual test, so only the CG steps JAX's loop takes
+run; the LM iterations stay masked. A bucket past the kernel's one
+cluster (8192 nodes, 16384 edges) is refused there. The masked ``_pcg`` is
+the CG of the CPU, of the sharded solve and of ``lm_solve(replay=False)``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.cuda import launch, spa_pcg
 from ..step_graph import capture_guard
 from ..utils.geometry import normalize_angle
 
@@ -175,17 +179,23 @@ def _block_diag(lin: _Linearization, data: PoseGraphData, damping, reduce_fn=Non
     return blocks + (damping + 1e-6) * eye[None]
 
 
+def _preconditioner(lin: _Linearization, data: PoseGraphData, damping, reduce_fn=None):
+    """(N, 3, 3) inverses of the block-Jacobi diagonal: ``inv_ex``, the LU
+    inverse of ``inv`` without its synchronising error check
+    (``jnp.linalg.inv`` never raises either)."""
+    return torch.linalg.inv_ex(_block_diag(lin, data, damping, reduce_fn))[0]
+
+
 def _pcg(lin: _Linearization, data: PoseGraphData, b, damping, iters: int,
          tol: float, reduce_fn=None):
     """Preconditioned CG on (H + λI) x = b with block-Jacobi preconditioner:
     ``iters`` steps, each taken only while JAX's loop test — the residual
     above ``tol`` of ``b`` — holds before it (``active``, on the device).
     Every vector here is node-sized and, under edge sharding, the same on
-    every rank: the test reads reduced products only. The block inverse is
-    ``inv_ex``: the LU inverse of ``inv`` without its synchronising error
-    check (``jnp.linalg.inv`` never raises either). Returns ``x`` and the
-    number of steps taken (() int32)."""
-    pinv, _ = torch.linalg.inv_ex(_block_diag(lin, data, damping, reduce_fn))
+    every rank: the test reads reduced products only. Returns ``x`` and the
+    number of steps taken (() int32). The kernel ``spa_pcg`` runs the same
+    steps and stops where the test fails (``SolveProgram``)."""
+    pinv = _preconditioner(lin, data, damping, reduce_fn)
 
     def precond(v):
         return torch.einsum("nij,nj->ni", pinv, v) * lin.gauge
@@ -235,13 +245,18 @@ class _LMState(NamedTuple):
 
 
 def _lm_iteration(state: _LMState, data: PoseGraphData, gauge, cg_iters: int,
-                  reduce_fn, scalar_reduce_fn) -> _LMState:
+                  reduce_fn, scalar_reduce_fn, pcg=None) -> _LMState:
     """One LM iteration with Ceres-style accept/reject and adaptive
-    damping; it changes nothing once ``done`` (JAX's loop has ended)."""
+    damping; it changes nothing once ``done`` (JAX's loop has ended).
+    ``pcg(lin, b, lam, done)``, where given, solves for the step in place of
+    the masked ``_pcg`` (the kernel: ``SolveProgram._kernel_pcg``)."""
     poses, lam, cost, it, done, cg = state
     lin = _linearize(poses, data, gauge)
     g = _gradient(lin, poses, data, reduce_fn)
-    step, steps = _pcg(lin, data, -g, lam, cg_iters, 1e-6, reduce_fn)
+    if pcg is None:
+        step, steps = _pcg(lin, data, -g, lam, cg_iters, 1e-6, reduce_fn)
+    else:
+        step, steps = pcg(lin, -g, lam, done)
     new_poses = poses + step
     new_poses = torch.cat(
         [new_poses[:, :2], normalize_angle(new_poses[:, 2:3])], dim=1)
@@ -263,10 +278,10 @@ def _lm_iteration(state: _LMState, data: PoseGraphData, gauge, cg_iters: int,
 
 
 def closure_path(device) -> str:
-    """How an unsharded SPA solve on ``device`` runs: "graph" (a program per
-    bucket replayed from a CUDA graph) or "eager: cpu tensors" (a sharded
-    solve is eager everywhere)."""
-    return "graph" if torch.device(device).type == "cuda" else "eager: cpu tensors"
+    """How an unsharded SPA solve on ``device`` runs: "graph: cg kernel" (a
+    program per bucket replayed from a CUDA graph, its CG the kernel) or
+    "eager: cpu tensors" (a sharded solve is eager everywhere)."""
+    return "graph: cg kernel" if torch.device(device).type == "cuda" else "eager: cpu tensors"
 
 
 def _init_state(s: _LMState, data: PoseGraphData):
@@ -298,20 +313,27 @@ class SolveProgram:
     and carry buffers and one LM iteration captured into a CUDA graph,
     reused by every solve at that shape.
 
-    A solve copies the graph into the buffers, resets the carry on the
-    device and replays the iteration ``max_iters`` times; the first solve
-    runs its first iteration eagerly (the warm-up a capture needs, and a
-    real iteration) and captures the second on a side stream: the masked
-    ``_lm_iteration``, so the result is the eager masked loop's bit for bit
-    under deterministic sums. The capture is thread-local (the engine's
-    front end launches and reads from another thread meanwhile; a draw from
-    the card's random generator there would be refused, and the engine makes
-    none) and holds ``step_graph.capture_guard``. A capture that fails
-    raises; nothing falls back to eager launches. ``last`` says what the
-    latest solve did: "capture" or "replay", ``last_capture_s`` the seconds
-    its capture took (the warm-up iteration included)."""
+    A solve copies the graph into the buffers, builds its incidence lists
+    (``spa_pcg.incidence``, on the device), resets the carry and replays
+    the iteration ``max_iters`` times; the first solve runs its first
+    iteration eagerly (the warm-up a capture needs, and a real iteration)
+    and captures the second on a side stream. The iteration is the masked
+    ``_lm_iteration`` with its CG the kernel ``spa_pcg``; a shape past the
+    kernel's one cluster is refused (``ValueError``). The kernel's launch
+    count is added at every replay. The capture is
+    thread-local (the engine's front end launches and reads from another
+    thread meanwhile; a draw from the card's random generator there would
+    be refused, and the engine makes none) and holds
+    ``step_graph.capture_guard``. A capture that fails raises; nothing falls
+    back to eager launches. ``last`` says what the latest solve did:
+    "capture" or "replay", ``last_capture_s`` the seconds its capture took
+    (the warm-up iteration included)."""
 
     def __init__(self, device, pn: int, pe: int, max_iters: int, cg_iters: int):
+        if not spa_pcg.holds(pn, pe):
+            raise ValueError(f"SolveProgram: {pn} nodes and {pe} edges exceed the CG "
+                             f"kernel's one cluster ({spa_pcg.MAX_CLUSTER * spa_pcg.NODE_SPAN} "
+                             f"nodes, {spa_pcg.MAX_CLUSTER * spa_pcg.EDGE_SPAN} edges)")
         f32 = dict(dtype=torch.float32, device=device)
         self.data = PoseGraphData(
             poses=torch.zeros((pn, 3), **f32),
@@ -326,19 +348,29 @@ class SolveProgram:
             done=torch.zeros((), dtype=torch.bool, device=device),
             cg=torch.zeros((), **i32))
         self.gauge = torch.zeros((pn, 1), **f32)
+        self.ptr = torch.zeros((pn + 1,), **i32)        # incidence lists
+        self.entries = torch.zeros((2 * pe,), **i32)
         self.name = f"solve_{pn}x{pe}"
         self.max_iters, self.cg_iters = max_iters, cg_iters
         self.graph = None
+        self.launches: list = []          # (counter, args) of the captured launches
         self.last = None
         self.last_capture_s = 0.0         # seconds the latest solve spent capturing
         self._lock = threading.Lock()
         self._done = None                 # event after the latest solve's output
 
+    def _kernel_pcg(self, lin: _Linearization, b, lam, done):
+        """The iteration's CG as one launch of the kernel (the blocks'
+        inverses come column-major from the batched LU: made contiguous)."""
+        pinv = _preconditioner(lin, self.data, lam).contiguous()
+        return spa_pcg.pcg(lin.ja, lin.jb, lin.info, lin.gauge, pinv, b, lam, done,
+                           self.data.edge_ij, self.ptr, self.entries, self.cg_iters, 1e-6)
+
     def _iteration(self):
         """One LM iteration on the static buffers, in place."""
         s = self.state
         for dst, src in zip(s, _lm_iteration(s, self.data, self.gauge, self.cg_iters,
-                                             None, None)):
+                                             None, None, self._kernel_pcg)):
             dst.copy_(src)
 
     def _capture(self):
@@ -349,10 +381,11 @@ class SolveProgram:
             side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         graph = torch.cuda.CUDAGraph()
+        launches: list = []
         t = time.perf_counter()
         with torch.cuda.stream(side):
             self._iteration()             # the warm-up: a real iteration
-            with capture_guard():
+            with capture_guard(), launch.capturing(launches, {}):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     self._iteration()
@@ -360,7 +393,7 @@ class SolveProgram:
                     graph.capture_end()
         main.wait_stream(side)
         self.last_capture_s = time.perf_counter() - t
-        self.graph = graph
+        self.graph, self.launches = graph, launches
 
     def __call__(self, data: PoseGraphData) -> torch.Tensor:
         """Solve ``data`` (on the card, padded to this program's shape);
@@ -372,6 +405,9 @@ class SolveProgram:
             for dst, src in zip(self.data, data):
                 dst.copy_(src, non_blocking=True)
             self.gauge.copy_(_gauge_mask(self.data))
+            for dst, src in zip((self.ptr, self.entries),
+                                spa_pcg.incidence(self.data.edge_ij, self.ptr.shape[0] - 1)):
+                dst.copy_(src)
             _init_state(self.state, self.data)
             n = self.max_iters
             self.last, self.last_capture_s = "replay", 0.0
@@ -381,6 +417,8 @@ class SolveProgram:
                 n -= 1
             for _ in range(n):
                 self.graph.replay()
+                for counter, args in self.launches:
+                    counter(*args)
             out = _packed(self.state)
             self._done = torch.cuda.Event()
             self._done.record(main)

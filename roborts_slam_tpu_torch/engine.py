@@ -412,8 +412,8 @@ class EngineDiagnostics:
     captures_by_key: dict = dataclasses.field(default_factory=dict)
     replays_by_key: dict = dataclasses.field(default_factory=dict)
     # the loop closure's programs (JAX's solve and rebuild per bucket): the
-    # solve's path ("graph" or "eager: <why>") and the correction rebuild's
-    # ("graph" or "eager: <why>"); their captures and replays are counted
+    # solve's path ("graph: cg kernel" or "eager: <why>") and the correction
+    # rebuild's ("graph" or "eager: <why>"); their captures and replays are counted
     # above by program ("solve_<nodes>x<edges>": one a solve,
     # "rebuild_<bucket>": one a correction); corrections rebuilt eagerly from
     # the exact rows (the first at a rebuild program's key); LM iterations

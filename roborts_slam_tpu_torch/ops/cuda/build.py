@@ -22,7 +22,7 @@ from pathlib import Path
 
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR.parents[1] / "_build"
-SOURCES = ("correlation", "correlation_v2", "raycarve")
+SOURCES = ("correlation", "correlation_v2", "raycarve", "spa_pcg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -16,7 +16,11 @@ that holds their middle (its ``/<id>`` cut off), the harness's span where
 none does. After the harness's own lines it prints, traced, ``{"stages":
 {name: {"count", "total_s", "ms_per_scan"}}}`` over the window's engines,
 ``{"spans": {metric: value}}`` (the per-layer numbers below) and
-``{"idle_gaps_named": [[name, seconds], ...]}``.
+``{"idle_gaps_named": [[name, seconds], ...]}``; traced or not,
+``{"closures": ...}``, the window's closure calls split by whether they
+captured a solve or rebuild program (``closure_split``), and
+``{"engines": ...}``, at each new engine the engines still alive, the
+card's allocated bytes and the peak so far.
 
 ``--span-cost``: the host cost of one stage span with no profiler
 recording, beside a ``contextlib`` generator span and ``record_function``
@@ -95,6 +99,30 @@ def span_metrics(ctx: dict, copies_s: float) -> dict:
     return out
 
 
+def closure_split(records: list) -> dict:
+    """The closure calls (``{"ms", "captured", "capture_ms", "eager"}``
+    each: the call's host ms less the check's pauses, the programs it
+    captured, the ms its captures took, whether it rebuilt the maps eagerly)
+    split into those that captured a solve or rebuild program, those that
+    rebuilt eagerly (a bucket's first correction) and those that replayed
+    only: count, mean and median ms, and the mean of the captures' ms."""
+    import statistics
+
+    out = {}
+    for kind, rows in (("capture", [r for r in records if r["captured"]]),
+                       ("eager", [r for r in records if not r["captured"] and r["eager"]]),
+                       ("replay", [r for r in records if not r["captured"]
+                                   and not r["eager"]])):
+        ms = [r["ms"] for r in rows]
+        out[kind] = {"n": len(rows), "mean_ms": statistics.fmean(ms) if ms else None,
+                     "median_ms": statistics.median(ms) if ms else None,
+                     "capture_ms_mean": statistics.fmean(r["capture_ms"] for r in rows)
+                     if rows else None}
+    out["all_mean_ms"] = statistics.fmean(r["ms"] for r in records) if records else None
+    out["capture_share"] = out["capture"]["n"] / len(records) if records else None
+    return out
+
+
 def name_gaps(trace: dict, top: int = 10) -> list:
     """The slice's longest idle gaps on the device, as ``lib.trace.read``
     finds them, each named by the innermost ``slam.`` span (its id cut off)
@@ -133,12 +161,41 @@ def run_cell(argv, _test=None) -> int:
     ap.add_argument("--trace", type=int, default=0)
     traced = bool(ap.parse_known_args(argv)[0].trace)
 
+    import weakref
+
+    import torch
+
     import roborts_slam_tpu_torch.engine as tengine
+
+    alive: weakref.WeakSet = weakref.WeakSet()
+    engines, closures = [], []
+    card = torch.cuda.is_available()
+
+    def captured(d):
+        return {k: v for k, v in d.captures_by_key.items() if k.startswith(("solve_", "rebuild_"))}
 
     class Engine(tengine.SlamEngine):
         def __init__(self, *a, **k):
+            engines.append({"alive": len(alive),
+                            "allocated_gb": torch.cuda.memory_allocated() / 1e9 if card else 0.0,
+                            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if card else 0.0})
             super().__init__(*a, **k)
             self.timers.device_timing = traced
+            self.rec = None
+            alive.add(self)
+
+        def process(self, *a, **k):
+            d, rec = self.diag, self.rec
+            c0, k0, s0, e0 = d.loop_closures, captured(d), d.closure_capture_s, d.eager_rebuilds
+            p0, t0 = (rec.pause if rec is not None else 0.0), time.perf_counter()
+            out = super().process(*a, **k)
+            if d.loop_closures > c0:
+                dt = time.perf_counter() - t0 - ((rec.pause if rec is not None else 0.0) - p0)
+                closures.append({"ms": 1e3 * dt,
+                                 "captured": sorted(set(captured(d).items()) - set(k0.items())),
+                                 "capture_ms": 1e3 * (d.closure_capture_s - s0),
+                                 "eager": d.eager_rebuilds > e0})
+            return out
 
     tengine.SlamEngine = Engine
 
@@ -161,6 +218,7 @@ def run_cell(argv, _test=None) -> int:
     hook_of = harness.Recorder.hook
 
     def hook(rec, eng):
+        eng.rec = rec
         solve = eng.backend._solve_and_correct
         inner = {"s": 0.0}
 
@@ -216,6 +274,9 @@ def run_cell(argv, _test=None) -> int:
         print(json.dumps({"spans": span_metrics(ctx, copies["s"]),
                           "in_call_copies_s": copies["s"]}), flush=True)
         print(json.dumps({"idle_gaps_named": seen.get("gaps", [])}), flush=True)
+    if rc == 0:
+        print(json.dumps({"closures": closure_split(closures)}), flush=True)
+        print(json.dumps({"engines": engines}), flush=True)
     return rc
 
 
