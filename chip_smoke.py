@@ -133,6 +133,16 @@ the program and the eager masked loop timed there, and ptxas's report of
 the kernel (no spills). Every shape any phase launches K5 at is held so
 too and listed in the ``kernels`` line (``spa_pcg[<nodes>x<edges>]``).
 
+Leg 4 and its short legs run the optimize matcher (``SlamConfig()``), whose
+passes are one launch of the kernel K6 (``gauss_newton_match``) a match
+group on the card: every shape a phase launches K6 at (B maps x P point
+slots x the coarse map's H x W) is held on the spot against the plain loop
+on a room scene stamped into maps of that shape (``bench/gn_check``: pose,
+cost and passes within ``gn_check.BARS``, a second launch bit for bit),
+timed, and listed in the ``kernels`` line (``gauss_newton_match[BxPxHxW]``)
+with its launches and ptxas's report; leg 4's line carries the engine's
+Gauss-Newton counters (``gn``), held against the optimizer costs it kept.
+
 The last phase, ``bench_headline``, is ``python -m roborts_slam_tpu_torch
 bench`` (``bench/headline.py``): the two correlation kernels held against the
 plain version at the headline's three tier shapes (a 2048² map), one match on
@@ -1591,8 +1601,11 @@ def main() -> int:
     )
     from roborts_slam_tpu_torch.models.scan import LaserModel, ranges_to_packed
     from roborts_slam_tpu_torch.ops import correlative, raster, raycast
+    from roborts_slam_tpu_torch.ops import gauss_newton as gn
     from roborts_slam_tpu_torch.backend import spa
+    from roborts_slam_tpu_torch.bench import gn_check
     from roborts_slam_tpu_torch.ops.cuda import build, correlation, raycarve, spa_pcg
+    from roborts_slam_tpu_torch.ops.cuda import gauss_newton as gn_k
     from roborts_slam_tpu_torch.utils.geometry import transform_points
 
     dev = torch.device("cuda", 0)
@@ -1689,9 +1702,10 @@ def main() -> int:
     both_kernels = []     # every shape, both correlation kernels side by side
     # shapes held against the plain versions: (B, A, S, N, H, W) of the
     # correlation kernels, (P, H, W) of the carve, (B, R, H, W) of the ray
-    # check, (nodes, edges) of the SPA solve's CG
+    # check, (nodes, edges) of the SPA solve's CG, (B, P, H, W) of the
+    # Gauss-Newton match
     compared_corr, compared_mark, compared_check = set(), set(), set()
-    compared_pcg = set()
+    compared_pcg, compared_gn = set(), set()
 
     def compare_kernels(what, args, want):
         """Both correlation kernels on ``args`` against the plain version's
@@ -2249,9 +2263,9 @@ def main() -> int:
     def reset_counts():
         correlation.launches = correlation.launches_v2 = 0
         raycarve.mark_launches = raycarve.check_launches = 0
-        spa_pcg.pcg_launches = 0
+        spa_pcg.pcg_launches = gn_k.gn_launches = 0
         for by_shape in (correlation.launch_shapes, raycarve.mark_shapes,
-                         raycarve.check_shapes, spa_pcg.pcg_shapes):
+                         raycarve.check_shapes, spa_pcg.pcg_shapes, gn_k.gn_shapes):
             by_shape.clear()
 
     def read_counts():
@@ -2259,13 +2273,15 @@ def main() -> int:
                 "correlation_scores_v2": correlation.launches_v2,
                 "ray_mark_image": raycarve.mark_launches,
                 "bad_ray_count": raycarve.check_launches,
-                "spa_pcg": spa_pcg.pcg_launches}
+                "spa_pcg": spa_pcg.pcg_launches,
+                "gauss_newton_match": gn_k.gn_launches}
 
     def read_shapes():
         return {"corr": dict(correlation.launch_shapes),
                 "mark": dict(raycarve.mark_shapes),
                 "check": dict(raycarve.check_shapes),
-                "pcg": dict(spa_pcg.pcg_shapes)}
+                "pcg": dict(spa_pcg.pcg_shapes),
+                "gn": dict(gn_k.gn_shapes)}
 
     def pcg_entry(nodes, edges, leg):
         """K5 at one solve shape, on a loop graph padded to it, held
@@ -2288,6 +2304,38 @@ def main() -> int:
             "bound_ms": bms, "bound_by": by, "library_ms": None, "geometry": k["geometry"]}
         counted_as[key] = ("pcg", nodes, edges)
         compared_pcg.add((nodes, edges))
+
+    gn_ptxas = []
+
+    def gn_entry(B, P, H, W, leg):
+        """K6 at one launch shape (``B`` maps of ``H`` x ``W`` coarse cells,
+        ``P`` point slots) on a room scene stamped into maps of that shape,
+        held against the plain loop (``gn_check.held``), timed and listed."""
+        spec = dataclasses.replace(df_fspec.coarse_spec, height=H, width=W)
+        probs, pts, msk, pose0 = gn_check.scene(spec, P, None if B == 1 else B, 21, dev)
+        params = gn_check.params_of(df_config)
+        r = gn_check.compare(spec, params, probs, pts, msk, pose0)
+        assert gn_check.held(r), (leg, r)
+        if not gn_ptxas:
+            gn_ptxas.extend(gn_k.ptxas_report())
+            spills = [int(n) for ln in gn_ptxas for n in re.findall(r"(\d+) bytes spill", ln)]
+            assert spills and not any(spills), gn_ptxas
+        run = lambda: gn_k.match(probs, pts, msk, pose0, spec.inv_res, params)
+        key = f"gn_{B}x{P}x{H}x{W}"
+        entries[key] = {
+            "name": f"gauss_newton_match[{B}x{P}x{H}x{W}]", "route": "cuda",
+            "source": "roborts_slam_tpu_torch/ops/cuda/gauss_newton.cu",
+            "replaces": "roborts_slam_tpu/ops/gauss_newton.py:optimize_scan_match",
+            "shape": [B, P, H, W], "launches": 0, "launches_from": leg,
+            "max_abs_err": r["pose_gap_cells"], "angle_gap_rad": r["angle_gap_rad"],
+            "cost_rel_gap": r["cost_rel_gap"], "passes": r["passes"],
+            "repeats_its_bits": r["repeats_its_bits"], "ms": time_ms(run),
+            "device_us": device_us(run),
+            "plain_ms": time_ms(lambda: gn.optimize_passes_plain(spec, params, probs, pts,
+                                                                 msk, pose0), reps=5),
+            "library_ms": None, "ptxas": gn_ptxas}
+        counted_as[key] = ("gn", B, P, H, W)
+        compared_gn.add((B, P, H, W))
 
     def shapes_said(shapes):
         return {kind: {"x".join(map(str, k)): v for k, v in sorted(by.items())}
@@ -2325,9 +2373,12 @@ def main() -> int:
         for nodes, edges in sorted(shapes.get("pcg", {})):
             if (nodes, edges) not in compared_pcg:
                 pcg_entry(nodes, edges, leg)
+        for shape in sorted(shapes.get("gn", {})):
+            if shape not in compared_gn:
+                gn_entry(*shape, leg)
         for kind, launched in shapes.items():
             held = {"corr": compared_corr, "mark": compared_mark,
-                    "check": compared_check, "pcg": compared_pcg}[kind]
+                    "check": compared_check, "pcg": compared_pcg, "gn": compared_gn}[kind]
             for k in launched:
                 assert (k[1:] if kind == "corr" else k) in held, (leg, kind, k)
         for key, e in entries.items():
@@ -2412,6 +2463,7 @@ def main() -> int:
         assert kept >= 20, f"kept {kept} scans"
         assert eng.backend.num_links > 0 and eng.backend.num_solves >= 1
         assert counts.pop("correlation_scores_v2") == 0, counts
+        assert counts.pop("gauss_newton_match") == 0, counts    # no optimize matcher
         assert all(v > 0 for v in counts.values()), counts
         # three tiers per chain batch; one ray check per front-end step and
         # one per chain batch
@@ -2597,6 +2649,9 @@ def main() -> int:
             / len(eng.store),
             "recenters": diag.recenters, "dedistorted_scans": diag.scans_dedistorted,
             **step_path(diag),
+            # the optimize matcher's matches, passes and fallbacks
+            "gn": {"front": [diag.gn_matches, diag.gn_passes, diag.gn_fallbacks],
+                   "chain": [back.gn_matches, back.gn_passes, back.gn_fallbacks]},
             "ate_rmse_m": ate_rmse(est, gt), "cli_said": last,
             "fine_map": [eng.fspec.fine_spec.height, eng.fspec.fine_spec.width],
             "chain_map": [eng.bspec.fine_spec.height, eng.bspec.fine_spec.width],
@@ -2833,6 +2888,11 @@ def main() -> int:
     assert report4["kept"] >= 150, report4["kept"]
     assert report4["optimizer_pose_taken"] + report4["fell_back_to_coarse_tier"] \
         == report4["scans_fed"]
+    # the engine's counters, read with the steps, against the costs kept
+    assert report4["gn"]["front"][0] == report4["scans_fed"], report4["gn"]
+    assert report4["gn"]["front"][2] == report4["fell_back_to_coarse_tier"], report4["gn"]
+    assert report4["launches"]["gauss_newton_match"] == report4["scans_fed"] \
+        + report4["chain_dispatches"] + report4["fused_steps"], report4["launches"]
     assert report4["launches"]["correlation_scores"] > 0
     account(LEG4, shapes4, ctx_df)
     fed4 = parity.leg_inputs("leg4", loop_log)
@@ -3256,7 +3316,8 @@ def main() -> int:
               LEG2: ("correlation_scores[chain",),
               LEG3: ("correlation_scores_v2[", "ray_mark_image[", "bad_ray_count[",
                      "spa_pcg["),
-              LEG4: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
+              LEG4: ("correlation_scores[", "ray_mark_image[", "bad_ray_count[",
+                   "gauss_newton_match["),
               LEG5: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
               "parallel_chain_match": ("correlation_scores[", "bad_ray_count["),
               "log_odds": ("ray_mark_image[",),

@@ -57,6 +57,11 @@ from ..utils.profiling import StageTimers
 from .pose_graph import PoseGraph
 from .spa import solve_packed
 
+# the length of a packed chain row: pose(3) + score(1) + cov(9) + the
+# match's Gauss-Newton [passes, failed]
+ROW = 15
+
+
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
     config: SlamConfig
@@ -84,7 +89,7 @@ class BackendSpec:
 def chain_match(spec: BackendSpec,
                 chain_points, chain_masks, chain_poses, chain_valid,
                 points, mask, n_valid, init_pose, center_pose,
-                pub_hits, pub_passes, pub_offset):
+                pub_hits, pub_passes, pub_offset, packed: bool = False):
     """ScanMatchInterface (slam_processor.cpp:250-326) for ``B`` chains at
     once: back-end maps recentered on ``center_pose``
     (ResetScanMatchMapWithRangeVec :448-462), rebuilt from each chain in one
@@ -92,7 +97,9 @@ def chain_match(spec: BackendSpec,
 
     chain_points (B,K,P,2), chain_masks (B,K,P), chain_poses (B,K,3),
     chain_valid (B,K); init_pose (B,3); center_pose (3,) shared. Returns
-    (pose (B,3), score (B,), cov (B,3,3))."""
+    (pose (B,3), score (B,), cov (B,3,3)), or with ``packed`` the (B, ROW)
+    f32 rows of them and of the match's Gauss-Newton passes and failed
+    flag (``ScanMatchOutput.gn``)."""
     cfg = spec.config
     B = chain_points.shape[0]
     dev = chain_points.device
@@ -111,7 +118,8 @@ def chain_match(spec: BackendSpec,
                             chain_points, chain_masks, chain_poses,
                             chain_valid, use_blur=cfg.fine_map_use_blur)
     # every correlative tier reads the fine map; only the optimize matcher
-    # reads the coarse chain maps, so they are built only for it
+    # (K6 on the card) reads the coarse chain maps, so they are built only
+    # for it
     coarse = ProbMap(None, None)
     if spec.matcher.use_optimize_scan_match:
         coarse = stamp_scan_batch(
@@ -140,6 +148,9 @@ def chain_match(spec: BackendSpec,
         score = torch.clamp(out.score * penalty, max=1.0)
     else:
         score = out.score
+    if packed:
+        return torch.cat([out.pose.to(torch.float32), score[:, None].to(torch.float32),
+                          out.cov.reshape(B, 9).to(torch.float32), out.gn], dim=1)
     return out.pose, score, out.cov
 
 
@@ -147,14 +158,15 @@ def chain_match_batch_gather(spec: BackendSpec,
                              all_points, all_masks, all_poses,
                              chain_ids, scan_id: int, n_valid: int,
                              init_poses, center_pose,
-                             pub_hits, pub_passes, pub_offset):
+                             pub_hits, pub_passes, pub_offset, packed: bool = False):
     """All candidate chains of one LinkNearChains / TryCloseLoop pass matched
     in one batched call (the reference loops chains serially,
     range_scan_pose_graph.cpp:125-164), with the scans gathered on the
     device from the store's resident buffers by a (B, K) id matrix
     (-1 = padding). Per call the host ships only ids + init poses.
     ``scan_id``: a host int, or a (1,) int64 tensor on the device (with
-    ``n_valid`` a device scalar: nothing of the call is then a host value)."""
+    ``n_valid`` a device scalar: nothing of the call is then a host value).
+    ``packed`` as for ``chain_match``."""
     ids = torch.clamp(chain_ids, min=0)
     valid = chain_ids >= 0                              # (B, K)
     cp = all_points[ids]                                # (B, K, P, 2)
@@ -167,7 +179,7 @@ def chain_match_batch_gather(spec: BackendSpec,
         points, mask = all_points[scan_id], all_masks[scan_id]
     return chain_match(spec, cp, cm, cpo, valid, points, mask, n_valid,
                        init_poses, center_pose,
-                       pub_hits, pub_passes, pub_offset)
+                       pub_hits, pub_passes, pub_offset, packed)
 
 
 def _chain_rows(bspec: BackendSpec, state, store_points, store_masks,
@@ -176,18 +188,16 @@ def _chain_rows(bspec: BackendSpec, state, store_points, store_masks,
     padding) gathered on the device from the store's rows, with the matched
     ``pose`` as init and centre and the front end's post-update pub map as
     feedback: what ``Backend._match_chain_batch`` would compute for the same
-    chains after the scan is kept. Returns the (B·13,) rows pose(3) +
-    score(1) + cov(9)."""
+    chains after the scan is kept. Returns the (B·ROW,) rows
+    (``chain_match``'s ``packed``)."""
     ids = torch.clamp(chain_ids, min=0)
     valid = chain_ids >= 0
     B = chain_ids.shape[0]
-    bpose, bscore, bcov = chain_match(
+    return chain_match(
         bspec, store_points[ids], store_masks[ids] & valid[..., None],
         store_poses[ids], valid, points, mask, n_valid,
         pose[None].expand(B, 3), pose,
-        state.pub.hits, state.pub.passes, state.pub.offset)
-    return torch.cat([bpose.to(torch.float32), bscore[:, None].to(torch.float32),
-                      bcov.reshape(B, 9).to(torch.float32)], dim=1).reshape(-1)
+        state.pub.hits, state.pub.passes, state.pub.offset, packed=True).reshape(-1)
 
 
 def _slot_index(slot, device) -> torch.Tensor:
@@ -214,8 +224,8 @@ def fused_frontend_chain_step(fspec, bspec: BackendSpec, state,
     int64 tensor or a host int) of the store's device rows whether it is
     kept or not: a rejected scan's row is dead until the next kept scan
     overwrites it, and the batch reads only rows below the slot. Returns
-    ``(state, info, packed)``, ``packed`` the (15 + B·13,) device vector:
-    the step's summary, then each chain row. On the card the engine
+    ``(state, info, packed)``, ``packed`` the (SUMMARY + B·ROW,) device
+    vector: the step's summary, then each chain row. On the card the engine
     captures this in a CUDA graph."""
     state, info = frontend_step(fspec, state, points, mask, n_valid, cur_odom,
                                 device_gate=True)
@@ -240,8 +250,8 @@ def fused_cursor_step(fspec, bspec: BackendSpec, state,
     ``chain_ids`` None: no chain was predicted and the chain batch does not
     run (JAX's ``lax.cond`` on ``any(valid)``, decided on the host from what
     it already knows). Nothing is read. Returns ``(state, info, packed)``
-    with ``packed`` the device vector [15 summary | cursor after the step |
-    B·13 rows, none without chains]."""
+    with ``packed`` the device vector [SUMMARY summary | cursor after the
+    step | B·ROW rows, none without chains]."""
     state, info = frontend_step(fspec, state, points, mask, n_valid, cur_odom,
                                 cur_time=cur_time, device_gate=True)
     rows = []
@@ -283,6 +293,15 @@ class Backend:
         # kernel; ``_SOLVE_ITERS`` x ``_SOLVE_CG_ITERS`` an eager masked solve)
         self.cg_steps_needed = 0
         self.cg_steps_run = 0
+        # the chain matches' Gauss-Newton stage (the optimize matcher, K6 on
+        # the card) over the rows the back end takes: matches, the passes
+        # run over them, and matches whose cost failed (the coarse tier's
+        # pose taken). Summed on the host from the rows' last two columns
+        # (``_take_rows``); bucket padding and fused rows left unused are not
+        # counted
+        self.gn_matches = 0
+        self.gn_passes = 0
+        self.gn_fallbacks = 0
         self.chain_match_time_s = 0.0     # host clock, each call ends in its fetch
         self.solve_time_s = 0.0           # host clock, SPA solve + corrections
         # stages (the engine hands its own over): closure_solve,
@@ -399,6 +418,17 @@ class Backend:
                 break
         return dict(self._measured_mem)
 
+    def _take_rows(self, flat: np.ndarray) -> list[tuple]:
+        """Chain rows the back end takes, (n, ROW) on the host, as (pose
+        (3,), score, cov (3, 3)) each; their Gauss-Newton passes and
+        failures are added to the counters (none without the optimize
+        matcher)."""
+        if self.spec.matcher.use_optimize_scan_match:
+            self.gn_matches += len(flat)
+            self.gn_passes += int(flat[:, 13].sum())
+            self.gn_fallbacks += int((flat[:, 14] > 0.5).sum())
+        return [(r[:3].copy(), float(r[3]), r[4:13].reshape(3, 3).copy()) for r in flat]
+
     def _match_chain_batch(self, chain_id_lists: list[list[int]],
                            scan_id: int, init_poses: np.ndarray):
         """Match one scan against its candidate chains, in batches of
@@ -418,8 +448,8 @@ class Backend:
         and (bucket, 3) ``inits``, through the batch's program
         (``_batch_program``): its inputs staged into one vector, the pub map
         copied into the program's own planes, a CUDA graph replay on the card
-        where ``capture`` is set. Returns the device results (views of the
-        program's output, overwritten by its next run)."""
+        where ``capture`` is set. Returns the program's (bucket, ROW) device
+        rows (``chain_match``'s ``packed``), overwritten by its next run."""
         st = self.store
         rows = st.device_arrays()
         # the pub map can grow mid-run: pair the arrays with the spec they
@@ -447,7 +477,7 @@ class Backend:
             d.replays_by_key[name] = d.replays_by_key.get(name, 0) + 1
             if prog.last == "capture":
                 d.captures_by_key[name] = d.captures_by_key.get(name, 0) + 1
-        return out[:, :3], out[:, 3], out[:, 4:].reshape(B, 3, 3)
+        return out
 
     def _batch_program(self, spec: BackendSpec, rows, pub, B: int, K: int) -> StepGraph:
         """The separate chain batch of ``B`` chains of ``K`` scans as a
@@ -466,12 +496,11 @@ class Backend:
 
         def fn(staged):
             o = B * K
-            bpose, bscore, bcov = chain_match_batch_gather(
+            return chain_match_batch_gather(
                 spec, *rows, staged[:o].view(B, K).to(torch.int64),
                 staged[o:o + 1].to(torch.int64), staged[o + 1].to(torch.int32),
-                staged[o + 2:o + 2 + 3 * B].view(B, 3), staged[o + 2 + 3 * B:], *planes)
-            return torch.cat([bpose.to(torch.float32), bscore[:, None].to(torch.float32),
-                              bcov.reshape(B, 9).to(torch.float32)], dim=1)
+                staged[o + 2:o + 2 + 3 * B].view(B, 3), staged[o + 2 + 3 * B:], *planes,
+                packed=True)
 
         prog = StepGraph(fn, B * K + 5 + 3 * B, rows[0].device, capture=self.capture)
         prog.signature, prog.spec, prog.pub = sig, spec, planes
@@ -481,7 +510,8 @@ class Backend:
     def _match_chain_batch_one(self, chain_id_lists: list[list[int]],
                                scan_id: int, inits: np.ndarray):
         """One batch of ``B`` chains, padded with empty chains (-1 ids, whose
-        near-default score falls below every threshold) up to a bucket."""
+        near-default score falls below every threshold) up to a bucket; the
+        ``B`` real rows taken (``_take_rows``)."""
         t0 = time.perf_counter()
         K = self.spec.max_chain_scans
         B = len(chain_id_lists)
@@ -492,23 +522,21 @@ class Backend:
         padded = np.zeros((bucket, 3), np.float32)
         padded[:B] = inits
         self.num_chain_dispatches += 1
-        bpose, bscore, bcov = self._batch_on_device(ids, scan_id, padded)
-        # ONE host fetch for all three results
-        flat = torch.cat([bpose, bscore[:, None], bcov.reshape(bucket, 9)], dim=1) \
-            .cpu().numpy().astype(np.float64)
+        # ONE host fetch for all the rows
+        flat = self._batch_on_device(ids, scan_id, padded).cpu().numpy().astype(np.float64)
         self.chain_match_time_s += time.perf_counter() - t0
         self.timers.device_resolve()
-        return [(flat[i, :3].copy(), float(flat[i, 3]),
-                 flat[i, 4:].reshape(3, 3).copy()) for i in range(B)]
+        return self._take_rows(flat[:B])
 
     # ---- graph construction (UpdateGraph, range_scan_pose_graph.cpp:44-78) ----
 
     def update_graph(self, scan_id: int, covariance: np.ndarray,
                      prematched=None):
         """``prematched``: optional ``(chains, rows)`` from a fused step — the
-        chain set discovered from the predicted pose and its match rows. They
-        are taken instead of a separate batch iff the real discovery (from
-        the matched pose) finds the identical chain set."""
+        chain set discovered from the predicted pose and its match rows ((n,
+        ROW) on the host). They are taken instead of a separate batch iff the
+        real discovery (from the matched pose) finds the identical chain
+        set."""
         vid = self.graph.add_vertex()
         assert vid == scan_id, (vid, scan_id)
         if scan_id > 0:
@@ -535,7 +563,7 @@ class Backend:
         if not chains:
             return
         if prematched is not None and prematched[0] == chains:
-            results = prematched[1]
+            results = self._take_rows(prematched[1])
             self.num_fused_hits += 1
             self.fused_rows_used += len(chains)
         else:
@@ -581,7 +609,7 @@ class Backend:
             if not chains:
                 break
             if _round == 0 and prematched is not None and prematched[0] == chains:
-                coarse = prematched[1]           # rode the fused step
+                coarse = self._take_rows(prematched[1])   # rode the fused step
                 self.num_fused_hits += 1
                 self.fused_rows_used += len(chains)
             else:

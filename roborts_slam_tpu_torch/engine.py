@@ -69,11 +69,11 @@ import torch
 from .config import SlamConfig
 from .backend.pose_graph import PoseGraph, solver_bucket
 from .backend.processor import (
-    Backend, BackendSpec, fused_cursor_step, fused_frontend_chain_step,
+    ROW, Backend, BackendSpec, fused_cursor_step, fused_frontend_chain_step,
 )
 from .backend.spa import closure_path
 from .frontend.processor import (
-    FrontendSpec, FrontendState, frontend_step, frontend_step_windowed,
+    SUMMARY, FrontendSpec, FrontendState, frontend_step, frontend_step_windowed,
     init_frontend_state,
 )
 from .io.dedistort import dedistort_scan
@@ -425,6 +425,13 @@ class EngineDiagnostics:
     solve_lm_iters: int = 0
     solve_cg_steps: int = 0
     closure_capture_s: float = 0.0
+    # the front-end match's Gauss-Newton stage (the optimize matcher, K6 on
+    # the card): matches run, passes run over them, and matches whose cost
+    # failed, where the coarse tier's pose was taken (the chain matches' are
+    # the back end's). Summed from each step's summary as it is read
+    gn_matches: int = 0
+    gn_passes: int = 0
+    gn_fallbacks: int = 0
 
 
 class SlamEngine:
@@ -706,7 +713,7 @@ class SlamEngine:
                                                 t, fused_in)
                 commit.__enter__()
                 timers.device_resolve()          # the step's read has waited
-                self.last_summary = s
+                self._take_summary(s)
                 # the step read ONE packed vector — pose + cov + gates, and
                 # the chain rows of a fused step
                 accepted = bool(s[12] > 0.5)
@@ -738,7 +745,7 @@ class SlamEngine:
                     and len(self.store) % self.map_snapshot_every == 0):
                 self.on_map_snapshot(len(self.store), self.get_pub_map())
             self._ensure_pub_covers(pose, np_points, np_mask)
-            prematched = self._prematched(fused_in, s[15:])
+            prematched = self._prematched(fused_in, s[SUMMARY:])
         finally:
             commit.__exit__(None, None, None)
         if self.synchronous_backend:
@@ -961,15 +968,22 @@ class SlamEngine:
         return {"near": near, "loop": loop, "ids": ids,
                 "pose_version": self.store.pose_version}
 
+    def _take_summary(self, s: np.ndarray):
+        """Keep a step's summary as read (``last_summary``) and add its
+        Gauss-Newton passes and failed flag to ``diag``'s counters."""
+        self.last_summary = s
+        if self.config.use_optimize_scan_match:
+            self.diag.gn_matches += 1
+            self.diag.gn_passes += int(s[SUMMARY - 2])
+            self.diag.gn_fallbacks += int(s[SUMMARY - 1] > 0.5)
+
     @staticmethod
     def _prematched(fused_in, rows: np.ndarray):
-        """The fused step's chain rows (pose(3) + score(1) + cov(9) each)
-        paired with the chain sets they were matched for."""
+        """The fused step's chain rows ((n, ROW), the bucket's padding left
+        out) paired with the chain sets they were matched for."""
         if fused_in is None:
             return None
-        flat = rows.reshape(-1, 13)
-        out = [(flat[i, :3].copy(), float(flat[i, 3]), flat[i, 4:13].reshape(3, 3).copy())
-               for i in range(len(fused_in["near"]) + len(fused_in["loop"]))]
+        out = rows.reshape(-1, ROW)[:len(fused_in["near"]) + len(fused_in["loop"])]
         nn = len(fused_in["near"])
         return {"near": (fused_in["near"], out[:nn]) if fused_in["near"] else None,
                 "loop": (fused_in["loop"], out[nn:]) if fused_in["loop"] else None,
@@ -1154,7 +1168,7 @@ class SlamEngine:
                 e["event"].synchronize()
             s = e["host_out"].numpy().astype(np.float64)
         self.timers.device_resolve()
-        self.last_summary = s
+        self._take_summary(s)
         accepted = bool(s[12] > 0.5)
         pose = s[:3].copy()
         self._host_pose = pose.copy()
@@ -1187,7 +1201,7 @@ class SlamEngine:
         if self.on_pose is not None:
             self.on_pose(e["t"], pose.copy())
         cov = s[3:12].reshape(3, 3)
-        prematched = self._prematched(e["fused_in"], s[16:])
+        prematched = self._prematched(e["fused_in"], s[SUMMARY + 1:])
         pre = self._fresh_prematched(prematched)
         with self.timers.stage("backend_update"):
             self.backend.update_graph(scan_id, cov, prematched=(pre or {}).get("near"))
@@ -1826,7 +1840,8 @@ class SlamEngine:
             build.build_all()
         back = self.backend
         counters = (back.num_chain_dispatches, back.chain_match_time_s,
-                    back.num_solves, back.solve_time_s)
+                    back.num_solves, back.solve_time_s,
+                    back.gn_matches, back.gn_passes, back.gn_fallbacks)
         try:
             if calibrate:
                 back.calibrate_chain_batch()
@@ -1863,4 +1878,5 @@ class SlamEngine:
                 torch.cuda.synchronize(self.device)
         finally:
             (back.num_chain_dispatches, back.chain_match_time_s,
-             back.num_solves, back.solve_time_s) = counters
+             back.num_solves, back.solve_time_s,
+             back.gn_matches, back.gn_passes, back.gn_fallbacks) = counters

@@ -6,11 +6,15 @@ coarse→fine→super-fine correlative passes, all on the fine map
 (scan_matchers.h:238-260), stage-score averaging (:281) and the per-tier
 parameter derivation (ScanMatchParamInit :307-355).
 
-The data-dependent "optimize failed → fall back to coarse correlative"
-branch (:224-242), a ``lax.cond`` in the JAX package, is computed on both
-sides and selected with ``torch.where``: under the chain batch the JAX
-``cond`` is per element anyway, and the single front-end match keeps its
-one host read per scan this way.
+The Gauss-Newton stage (``ops/gauss_newton.py``) takes one of two device
+paths: on the card every pass of it is one launch of the CUDA kernel K6
+(``ops/cuda/gauss_newton.cu``), a block a map, inside the captured step and
+chain-batch programs; on CPU tensors it is the plain PyTorch loop. The
+data-dependent "optimize failed → fall back to coarse correlative" branch
+(:224-242), a ``lax.cond`` in the JAX package, is computed on both sides and
+selected with ``torch.where``: under the chain batch the JAX ``cond`` is per
+element anyway, and the single front-end match keeps its one host read per
+scan this way.
 """
 
 from __future__ import annotations
@@ -107,6 +111,9 @@ class ScanMatchOutput(NamedTuple):
     pose: torch.Tensor       # (...,3) refined world pose
     score: torch.Tensor      # (...,) averaged stage score
     cov: torch.Tensor        # (...,3,3) covariance (fine positional + super angular)
+    # (...,2) f32: the Gauss-Newton stage's passes and whether its cost
+    # failed (the coarse tier's pose taken); zeros where it did not run
+    gn: torch.Tensor
 
 
 def _bnb_coarse(params: BnBParams, fine_spec: ProbMapSpec, fine_probs,
@@ -138,7 +145,10 @@ def scan_match(params: MatcherParams,
 
     All correlative tiers run against the *fine* map (scan_matchers.h:238,
     249, 256); the optimizer runs against the coarse map (:207), which is
-    read only when ``params.use_optimize_scan_match`` is set. ``points`` are
+    read only when ``params.use_optimize_scan_match`` is set: by K6 on the
+    card, by the plain loop on CPU tensors (module docstring); the output's
+    ``gn`` carries its passes and failed flag, for the engine's counters.
+    ``points`` are
     sensor-local meters; per-map scaling happens inside the ops. The maps,
     offsets and ``init_pose`` may carry leading batch dimensions (one per
     back-end chain). ``n_valid``: a () int tensor on the device (a host int
@@ -163,6 +173,7 @@ def scan_match(params: MatcherParams,
         return res.pose, res.response, res.cov
 
     pose, score, cov = run_coarse(init_pose, cov)
+    gn = torch.zeros((*score.shape, 2), dtype=torch.float32, device=score.device)
     if params.use_optimize_scan_match and use_fine_scan_match:
         # the coarse block is entered only on optimize failure (:224-226),
         # where the optimize result is discarded (:228-234): both sides end
@@ -175,6 +186,7 @@ def scan_match(params: MatcherParams,
         opt_score = params.optimize_failed_cost / (
             opt.cost + params.optimize_failed_cost)
         failed = opt.cost > params.optimize_failed_cost
+        gn = torch.stack([opt.passes.to(torch.float32), failed.to(torch.float32)], -1)
         pose = torch.where(failed[..., None], pose, opt.pose)
         score = torch.where(failed, score, opt_score)
         cov = torch.where(failed[..., None, None], cov,
@@ -193,4 +205,4 @@ def scan_match(params: MatcherParams,
         cov = res_s.cov
         times += 2
 
-    return ScanMatchOutput(pose=pose, score=score / float(times), cov=cov)
+    return ScanMatchOutput(pose=pose, score=score / float(times), cov=cov, gn=gn)

@@ -15,7 +15,7 @@ buffers are donated:
   ``torch.where`` exactly as in JAX, so no value is fetched to decide it;
   ``n_valid`` is a device scalar (a host int is made one).
 - The blocking step decides the map-update gate **once on the host**: it
-  fetches the packed ``(15,)`` summary (one synchronisation per scan — the
+  fetches the packed ``(SUMMARY,)`` summary (one synchronisation per scan — the
   same fetch the engine needs anyway) and, if the gate passed, updates the
   three maps **in place**. A rejected scan touches no map.
 - The device-gated step (``device_gate=True``: the fused and pipelined
@@ -108,20 +108,27 @@ class StepInfo(NamedTuple):
     cov: torch.Tensor           # (3,3)
     map_updated: torch.Tensor   # () bool — scan kept (added to store + backend)
     pose_accepted: torch.Tensor  # () bool — pose gate passed
-    packed: torch.Tensor        # (15,) f32 on the device, pack_step_summary
+    packed: torch.Tensor        # (SUMMARY,) f32 on the device, pack_step_summary
     summary: np.ndarray | None  # its float64 host copy (None: device-gated step)
 
 
-def pack_step_summary(pose, cov, map_updated, pose_accepted, score) -> torch.Tensor:
-    """The step's results flattened to ONE (15,) f32 vector: pose(3) +
-    cov(9) + [map_updated, pose_accepted, score] — the single per-scan
-    fetch."""
+# the length of a step's summary: pose(3) + cov(9) + [map_updated,
+# pose_accepted, score] + the match's Gauss-Newton [passes, failed]
+SUMMARY = 17
+
+
+def pack_step_summary(pose, cov, map_updated, pose_accepted, score, gn) -> torch.Tensor:
+    """The step's results flattened to ONE (SUMMARY,) f32 vector: pose(3) +
+    cov(9) + [map_updated, pose_accepted, score] + ``gn`` (the match's
+    Gauss-Newton passes and failed flag, ``ScanMatchOutput.gn``) — the
+    single per-scan fetch."""
     return torch.cat([
         pose.to(torch.float32),
         cov.reshape(-1).to(torch.float32),
         torch.stack([map_updated.to(torch.float32),
                      pose_accepted.to(torch.float32),
                      score.to(torch.float32)]),
+        gn,
     ])
 
 
@@ -294,7 +301,7 @@ def _frontend_core(spec: FrontendSpec, state: FrontendState,
                          float(cfg.map_update_occu_factor))
 
     pose_accepted = accept | is_first
-    packed = pack_step_summary(pose, out.cov, gate, pose_accepted, score)
+    packed = pack_step_summary(pose, out.cov, gate, pose_accepted, score, out.gn)
     summary = None
     if device_gate:
         update_count_map(spec.pub_spec, state.pub, points, mask, pose,

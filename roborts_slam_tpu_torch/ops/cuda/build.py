@@ -22,7 +22,7 @@ from pathlib import Path
 
 SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SOURCE_DIR.parents[1] / "_build"
-SOURCES = ("correlation", "correlation_v2", "raycarve", "spa_pcg")
+SOURCES = ("correlation", "correlation_v2", "raycarve", "spa_pcg", "gauss_newton")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -101,3 +101,21 @@ def check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def ptxas_report(name: str) -> list[str]:
+    """What ptxas says of every kernel of source ``name`` (registers, shared
+    memory, spills, stack): the source compiled once more to a cubin under
+    ``BUILD_DIR``. Needs ``nvcc``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{name}_report.cubin"
+    proc = subprocess.run(
+        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-cubin", "-Xptxas", "-v", "-o", str(out), str(SOURCE_DIR / f"{name}.cu")],
+        capture_output=True, text=True)
+    out.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    return [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+            if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln or "spill" in ln)
+            or "bytes stack frame" in ln]

@@ -20,7 +20,6 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
-import subprocess
 
 import torch
 
@@ -226,17 +225,5 @@ def pcg(ja, jb, info, gauge, pinv, b, lam, done, edge_ij, ptr, entries, iters: i
 
 def ptxas_report() -> list[str]:
     """What ptxas says of every instantiation of the kernel (registers,
-    shared memory, spills): ``spa_pcg.cu`` compiled once more to a cubin
-    under ``build.BUILD_DIR``. Needs ``nvcc``."""
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = build.BUILD_DIR / "spa_pcg_report.cubin"
-    proc = subprocess.run(
-        [build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-cubin", "-Xptxas", "-v", "-o", str(out), str(build.SOURCE_DIR / "spa_pcg.cu")],
-        capture_output=True, text=True)
-    out.unlink(missing_ok=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for spa_pcg.cu:\n{proc.stderr}")
-    return [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-            if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln or "spill" in ln)
-            or "bytes stack frame" in ln]
+    shared memory, spills). Needs ``nvcc``."""
+    return build.ptxas_report("spa_pcg")

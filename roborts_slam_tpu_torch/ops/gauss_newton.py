@@ -5,12 +5,19 @@ Counterpart of the JAX package's ``ops/gauss_newton.py``
 per-point bilinear interpolation + analytic Jacobian accumulation (:154-221)
 vectorized over all points, and the early-stopping iteration (:86-124).
 
+On the card the passes run as one launch of the CUDA kernel K6
+(``ops/cuda/gauss_newton.cu``, one block a map of the batch); CPU tensors
+take the plain loop (``optimize_passes_plain``), which is also the version
+K6's tests hold it against. The world↔map conversions, the empty-scan guard
+and the angle's normalisation stay in PyTorch around either.
+
 Differences from the JAX module:
 
-- ``lax.while_loop`` becomes a fixed loop of ``iterate_max_times`` steps
-  that carries a ``done`` mask on the device: an element that has stopped
-  keeps its pose and cost, exactly what a batched ``while_loop`` does under
-  ``vmap``. No value is read on the host.
+- ``lax.while_loop`` becomes, in the plain loop, a fixed loop of
+  ``iterate_max_times`` steps that carries a ``done`` mask on the device:
+  an element that has stopped keeps its pose and cost, exactly what a
+  batched ``while_loop`` does under ``vmap``; K6 stops each map on its own
+  test. No value is read on the host.
 - The 3x3 normal equations are solved by Gaussian elimination with partial
   pivoting written out in tensor ops (``solve3``), not by
   ``torch.linalg.solve``: the library call synchronises for its error check
@@ -18,6 +25,8 @@ Differences from the JAX module:
   the caller turns that into "keep the pose, cost ``K_MAX_COST``".
 - Maps, offsets and poses may carry leading batch dimensions (one per
   back-end chain); the scan is shared by the batch.
+- The passes each element ran are returned beside the pose and cost
+  (``OptimizeResult.passes``), for the engine's counters.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 
 from ..models.grid_map import ProbMapSpec, map_to_world_pose, world_to_map_pose
 from ..utils.geometry import normalize_angle
+from .cuda import gauss_newton as gn_kernel
 
 K_COST_POINT_SIZE = 1000.0   # optimize_scan_matcher.h:234
 K_MAX_COST = 1000.0          # optimize_scan_matcher.h:235
@@ -46,8 +56,9 @@ class OptimizeParams:
 
 
 class OptimizeResult(NamedTuple):
-    pose: torch.Tensor   # (...,3) world
-    cost: torch.Tensor   # (...,) normalized cost
+    pose: torch.Tensor     # (...,3) world
+    cost: torch.Tensor     # (...,) normalized cost
+    passes: torch.Tensor   # (...,) int32: the cost evaluations each element ran
 
 
 def solve3(H, b):
@@ -126,11 +137,12 @@ def _cost_h_b(spec: ProbMapSpec, probs, pose_map, points, mask):
     return cost, H, b
 
 
-def optimize_scan_match(spec: ProbMapSpec, params: OptimizeParams,
-                        probs, offset, points, mask, pose_world) -> OptimizeResult:
-    """Iterated GN with step clamping and plateau early-stop
-    (optimize_scan_matcher.h:86-132)."""
-    pose0 = world_to_map_pose(offset, spec.inv_res, pose_world)
+def optimize_passes_plain(spec: ProbMapSpec, params: OptimizeParams,
+                          probs, points, mask, pose0):
+    """The iterated GN with step clamping and plateau early-stop
+    (optimize_scan_matcher.h:86-132) from ``pose0`` (...,3) in map cells, in
+    plain tensor ops: K6's plain version. Returns the pose in map cells,
+    the cost and the passes each element ran (int32)."""
     max_d = params.max_update_distance * spec.inv_res
     lead = pose0.shape[:-1]
     dev = pose0.device
@@ -143,8 +155,10 @@ def optimize_scan_match(spec: ProbMapSpec, params: OptimizeParams,
     pose = pose0
     cost = torch.zeros(lead, dtype=torch.float32, device=dev)   # start cost 0
     done = torch.zeros(lead, dtype=torch.bool, device=dev)
+    passes = torch.zeros(lead, dtype=torch.int32, device=dev)
     for it in range(params.iterate_max_times):
         last = cost
+        passes = passes + (~done).to(torch.int32)
         new_cost, H, b = _cost_h_b(spec, probs, pose, points, mask)
         det = solve3(H + eye, b)
         nan = torch.any(torch.isnan(det), dim=-1)
@@ -159,10 +173,34 @@ def optimize_scan_match(spec: ProbMapSpec, params: OptimizeParams,
         pose = torch.where(done[..., None], pose, new_pose)
         cost = torch.where(done, cost, out_cost)
         done = done | stop
+    return pose, cost, passes
+
+
+def _kernel_passes(spec: ProbMapSpec, params: OptimizeParams, probs, points, mask, pose0):
+    """``optimize_passes_plain`` as one launch of K6: the batch's leading
+    dimensions flattened for the launch and restored after."""
+    lead = pose0.shape[:-1]
+    B = pose0[..., 0].numel()
+    maps = probs.reshape(-1, spec.height, spec.width)
+    maps = maps[0] if maps.shape[0] == 1 else maps
+    pose, cost, passes = gn_kernel.match(
+        maps.contiguous(), points.contiguous(), mask.contiguous(),
+        pose0.reshape(B, 3).contiguous(), spec.inv_res, params)
+    return pose.reshape(*lead, 3), cost.reshape(lead), passes.reshape(lead)
+
+
+def optimize_scan_match(spec: ProbMapSpec, params: OptimizeParams,
+                        probs, offset, points, mask, pose_world) -> OptimizeResult:
+    """Iterated GN with step clamping and plateau early-stop
+    (optimize_scan_matcher.h:86-132): K6 on the card, the plain loop on
+    CPU tensors."""
+    pose0 = world_to_map_pose(offset, spec.inv_res, pose_world)
+    passes_fn = _kernel_passes if probs.is_cuda else optimize_passes_plain
+    pose, cost, passes = passes_fn(spec, params, probs, points, mask, pose0)
     # empty-scan guard (optimize_scan_matcher.h:73-76): max cost, keep pose
     empty = ~torch.any(mask)
     cost = torch.where(empty, K_MAX_COST, cost)
     pose = torch.where(empty, pose0, pose)
     pose = torch.cat([pose[..., :2], normalize_angle(pose[..., 2:3])], dim=-1)
     return OptimizeResult(pose=map_to_world_pose(offset, spec.inv_res, pose),
-                          cost=cost)
+                          cost=cost, passes=passes)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """One cell of the benchmark (``slambench/``) run with the engine's spans
 read: the stages that tile ``process()``, the device times of the replayed
-programs and the counters of wasted chain rows and CG steps.
+programs, the counters of wasted chain rows and CG steps, and the
+optimize matcher's (Gauss-Newton) matches, passes and fallbacks.
 
     python3 scripts/torch_stage_spans.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
     python3 scripts/torch_stage_spans.py --span-cost [--root DIR]
@@ -9,7 +10,8 @@ programs and the counters of wasted chain rows and CG steps.
 The run is ``slambench/run.py``'s, with what the benchmark would need to
 read the spans laid on in this process: with ``--trace 1`` every engine's
 ``timers.device_timing`` set; each window engine's stages (count and host
-seconds) and the four counters added to the harness's totals; the seconds
+seconds) and the ten counters added to the harness's totals (the six
+Gauss-Newton ones read as 0 from a tree without them); the seconds
 of the check's copies made inside ``process()`` calls (the closure hook's)
 kept; the traced slice's idle gaps named by the innermost ``slam.`` span
 that holds their middle (its ``/<id>`` cut off), the harness's span where
@@ -65,7 +67,10 @@ def span_metrics(ctx: dict, copies_s: float) -> dict:
     ms per fed scan of ``ingest``, ``frontend_prepare``, ``frontend_commit``,
     of what no top-level stage holds (the calls' time less the six stages'),
     and of the back-end pass less the solve; the fused rows and CG steps
-    used of those run; the device ms of a replayed step and of a solve."""
+    used of those run; the device ms of a replayed step and of a solve; the
+    share of steps replayed; the Gauss-Newton passes a match and the share
+    of matches that fell back to the coarse tier's pose (front end and
+    chains together)."""
     t, fed = ctx["totals"], ctx["fed"]
     st = stage_totals(t)
 
@@ -96,6 +101,17 @@ def span_metrics(ctx: dict, copies_s: float) -> dict:
         out["closure.solve_device_ms"] = per("device.solve")
     if t.get("cg_steps_run"):
         out["closure.cg_useful_frac"] = t["cg_steps_needed"] / t["cg_steps_run"]
+    if t.get("graph_replays", 0) + t.get("eager_steps", 0):
+        out["step_graph.replay_frac"] = t["graph_replays"] / (t["graph_replays"]
+                                                              + t["eager_steps"])
+    matches = t.get("gn_matches", 0) + t.get("chain_gn_matches", 0)
+    if matches:
+        out["matcher.gn_passes_per_match"] = \
+            (t["gn_passes"] + t["chain_gn_passes"]) / matches
+        out["matcher.gn_fallback_frac"] = (t["gn_fallbacks"] + t["chain_gn_fallbacks"]) / matches
+        out["matcher.gn_matches"] = {"front": t["gn_matches"], "chain": t["chain_gn_matches"]}
+        out["matcher.gn_fallbacks"] = {"front": t["gn_fallbacks"],
+                                       "chain": t["chain_gn_fallbacks"]}
     return out
 
 
@@ -210,6 +226,9 @@ def run_cell(argv, _test=None) -> int:
         b = eng.backend
         out.update(fused_rows_run=b.fused_rows_run, fused_rows_used=b.fused_rows_used,
                    cg_steps_needed=b.cg_steps_needed, cg_steps_run=b.cg_steps_run)
+        for k in ("gn_matches", "gn_passes", "gn_fallbacks"):
+            out[k] = getattr(eng.diag, k, 0)
+            out[f"chain_{k}"] = getattr(b, k, 0)
         return out
 
     harness.engine_totals = engine_totals

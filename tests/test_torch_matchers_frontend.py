@@ -175,7 +175,7 @@ def test_frontend_replay_pose_score_cov(replay):
         np.testing.assert_array_equal(tsnap["last_kept_odom"], snap["last_kept_odom"])
         # the one fetched summary carries the same values
         np.testing.assert_allclose(tinfo.summary[:3], tinfo.pose.numpy(), atol=0)
-        assert tinfo.summary.shape == (15,)
+        assert tinfo.summary.shape == (tfp.SUMMARY,) == (17,)
         assert (tinfo.summary[12] > 0.5) == bool(tinfo.map_updated)
         free.append(float(np.abs(tinfo.pose.numpy() - np.asarray(jinfo.pose)).max()))
     print({"free_replay_pose_gap_max": max(free), "steps_beyond_3e-5": sum(g > 3e-5 for g in free)})

@@ -31,7 +31,9 @@ import roborts_slam_tpu_torch.models.grid_map as tgm
 import roborts_slam_tpu_torch.ops.correlative as tc
 import roborts_slam_tpu_torch.ops.raster as tr
 import roborts_slam_tpu_torch.ops.raycast as trc
+from roborts_slam_tpu_torch.backend.processor import ROW
 from roborts_slam_tpu_torch.bench import headline, lockstep, workload
+from roborts_slam_tpu_torch.frontend.processor import SUMMARY
 from roborts_slam_tpu_torch.models.scan import LaserModel as TLaser
 from roborts_slam_tpu_torch.ops.cuda import launch
 from roborts_slam_tpu_torch.step_graph import StepGraph, stage, staged_size, unstage
@@ -215,7 +217,7 @@ def test_capture_region_reads_nothing(icra, monkeypatch, kind):
             prog = b._programs[(2, eng.bspec.max_chain_scans)]
             with no_host_reads():
                 packed = prog.fn(prog.staged)
-            assert packed.shape == (2, 13) and torch.isfinite(packed).all()
+            assert packed.shape == (2, ROW) and torch.isfinite(packed).all()
             return
         if kind == "match_chain":
             w = workload.headline_workload(beams=181, device="cpu")
@@ -232,7 +234,7 @@ def test_capture_region_reads_nothing(icra, monkeypatch, kind):
         prog = _program_and_input(eng, icra, kind, 9)
         with no_host_reads():
             packed = prog.fn(prog.staged)
-    n = {"frontend": 15, "fused": 15 + 2 * 13, "cursor": 16 + 2 * 13}[kind]
+    n = {"frontend": SUMMARY, "fused": SUMMARY + 2 * ROW, "cursor": SUMMARY + 1 + 2 * ROW}[kind]
     assert packed.shape == (n,) and torch.isfinite(packed).all()
 
 
@@ -248,7 +250,8 @@ def test_chain_batch_program_equals_the_direct_call(icra):
     b, st = eng.backend, eng.store
     for sid in (6, 9):
         ids, _, inits = _batch_input(eng, sid)
-        got = [t.clone() for t in b._batch_on_device(ids, sid, inits)]
+        rows = b._batch_on_device(ids, sid, inits).clone()
+        got = rows[:, :3], rows[:, 3], rows[:, 4:13].reshape(-1, 3, 3)
         _, *pub = st.pub_map_arrays()
         want = chain_match_batch_gather(
             b.spec, *st.device_arrays(), torch.as_tensor(ids), sid, st.n_valid(sid),
