@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile [DIR]]
+    python3 chip_smoke.py [--profile [DIR]] [--root PARENT]
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version on the card at the shapes of every main
@@ -125,13 +125,21 @@ iterations and CG steps taken and their seconds, the CG one launch of the
 kernel ``spa_pcg`` an LM iteration (50 a solve, CG steps run = needed); two
 corrections in a row through ``Backend.force_optimize``, the second making
 no capture in the solve or the rebuild, each with its
-``solve_and_correct_s``; the correction rebuild's program (one carve per
-bucket slot) against the eager rebuild from the exact rows, every map bit
-for bit; K5 alone held against the masked ``_pcg`` at leg 3's graph and
+``solve_and_correct_s``; the correction rebuild's program (its pub counts
+one call of the rebuild kernel K7) against the eager rebuild from the exact
+rows, every map bit for bit, and against the plain loop (a carve a stored
+scan) on the card; the rebuild program at buckets 512-2048 with its capture
+time and, with ``--root PARENT``, the parent's per-slot program beside it
+in turns, the planes hashed alike (``scripts/torch_rebuild_kernel.py``); K5
+alone held against the masked ``_pcg`` at leg 3's graph and
 at node buckets 512-4096 (``k5_held``: the same steps, x against float64),
 the program and the eager masked loop timed there, and ptxas's report of
 the kernel (no spills). Every shape any phase launches K5 at is held so
-too and listed in the ``kernels`` line (``spa_pcg[<nodes>x<edges>]``).
+too and listed in the ``kernels`` line (``spa_pcg[<nodes>x<edges>]``); every
+shape any leg or this phase calls K7 at, on corridor rows with padding and
+the edge cases, bit for bit against the plain loop, with two faulty kernels'
+differing cells (``bench/rebuild_check.py``), as
+``rebuild_counts[<B>x<P>x<H>x<W>]``.
 
 Leg 4 and its short legs run the optimize matcher (``SlamConfig()``), whose
 passes are one launch of the kernel K6 (``gauss_newton_match``) a match
@@ -388,7 +396,15 @@ def profile_dir():
     if "--profile" not in sys.argv[1:]:
         return None
     rest = sys.argv[sys.argv.index("--profile") + 1:]
-    return rest[0] if rest else "out"
+    return rest[0] if rest and not rest[0].startswith("--") else "out"
+
+
+def parent_root():
+    """``--root PARENT``: a parent's unpacked tree, whose rebuild program
+    ``closure_program`` times beside this tree's; ``None`` without it."""
+    if "--root" not in sys.argv[1:]:
+        return None
+    return str(Path(sys.argv[sys.argv.index("--root") + 1]).resolve())
 
 
 def parallel_rank(spec, operands, graphs, budget, device):
@@ -1232,6 +1248,18 @@ def spa_script():
     return _script["m"]
 
 
+def rebuild_script():
+    """``scripts/torch_rebuild_kernel.py`` as a module, loaded once."""
+    import importlib.util
+
+    if "r" not in _script:
+        path = Path(__file__).resolve().parent / "scripts" / "torch_rebuild_kernel.py"
+        spec = importlib.util.spec_from_file_location("torch_rebuild_kernel", path)
+        _script["r"] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_script["r"])
+    return _script["r"]
+
+
 def k5_held(k: dict) -> bool:
     """Whether ``kernel_alone``'s reading holds K5 to the masked ``_pcg``:
     the same steps (or the masked loop's ‖r‖ within 1e-4 of the threshold
@@ -1393,10 +1421,17 @@ def closure_program(eng3, dev) -> dict:
     second must capture nothing. (3) The correction rebuild's program
     against the eager rebuild from the exact stored rows (what a first
     correction runs): pub hits and passes, coarse and fine maps bit for
-    bit, both timed. (4) ``warm_backend`` at leg 3's buckets keeps every
+    bit, both timed, and its pub planes against the plain loop on the card
+    (a carve a stored scan, ``rebuild_counts_plain``). (4)
+    ``warm_backend`` at leg 3's buckets keeps every
     map and counter. (5) What the corrections in a bucket pay: the rebuild
     made anew (an eager call, the capture, a replay) and the solve's
-    program made anew (a capture, a replay). (6) The kernel: its path
+    program made anew (a capture, a replay); the rebuild program at buckets
+    512 / 1024 / 2048 on corridor rows with its capture and device time,
+    and the rebuild kernel (K7) alone (``scripts/torch_rebuild_kernel.py``);
+    with ``--root PARENT`` the parent's program beside it in turns, its
+    planes' hashes equal.
+    (6) The solve's kernel: its path
     asserted (every solve's program runs it, 50 launches a solve, CG steps
     run = needed on the back end's counters); K5 alone held against the
     masked ``_pcg`` (``k5_held``) at the first LM iteration of leg 3's
@@ -1408,7 +1443,8 @@ def closure_program(eng3, dev) -> dict:
     from roborts_slam_tpu_torch.backend import spa
     from roborts_slam_tpu_torch.engine import _rebuild_all_maps
     from roborts_slam_tpu_torch.models.grid_map import CountMap, ProbMap
-    from roborts_slam_tpu_torch.ops.cuda import spa_pcg
+    from roborts_slam_tpu_torch.ops import raster
+    from roborts_slam_tpu_torch.ops.cuda import rebuild, spa_pcg
 
     back, diag, n = eng3.backend, eng3.diag, len(eng3.store)
     said = {"closure_path": diag.closure_path, "rebuild_path": diag.rebuild_path,
@@ -1489,11 +1525,30 @@ def closure_program(eng3, dev) -> dict:
     pairs = {"pub_hits": (st.pub.hits, fresh[0].hits),
              "pub_passes": (st.pub.passes, fresh[0].passes),
              "coarse": (st.coarse.probs, fresh[1].probs), "fine": (st.fine.probs, fresh[2].probs)}
+    # the pub planes of the plain loop on the card (a carve a stored scan),
+    # from the same rows
+    ps = fs.pub_spec
+    cells = [t.contiguous() for t in raster._scan_cells(ps.inv_res, st.pub.offset,
+                                                         *arrays[:3])]
+    first = tuple(t.contiguous() for t in raster._scan_cells(
+        ps.inv_res, st.pub.offset, arrays[0][0], arrays[1][0], arrays[2][0]))
+    plain = (torch.empty_like(st.pub.hits), torch.empty_like(st.pub.passes))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    raster.rebuild_counts_plain(*cells, arrays[3], *plain, cfg.map_update_free_factor,
+                                cfg.map_update_occu_factor, int(cfg.map_min_passthrough), first)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    against_plain = {"pub_hits": (st.pub.hits, plain[0]), "pub_passes": (st.pub.passes, plain[1]),
+                     "coarse": pairs["coarse"], "fine": pairs["fine"]}
     bucket = int(eng3.store.all_arrays()[0].shape[0])
     said["rebuild"] = {"scans": n, "bucket": bucket,
                        "program_replays": calls["replays"], "program_captures": calls["captures"],
                        "program_seconds": program_s, "eager_exact_rows_seconds": eager_s,
+                       "plain_loop_pub_seconds": plain_s,
                        "bit_equal": {k: torch.equal(a, b) for k, (a, b) in pairs.items()},
+                       "bit_equal_plain_loop": {k: torch.equal(a, b)
+                                                for k, (a, b) in against_plain.items()},
                        "pub_hits_sum": float(st.pub.hits.sum())}
     # warm_backend on this state: the programs of leg 3's buckets exist, so
     # it replays them (a rebuild bucket past the mirror is skipped), and it
@@ -1534,6 +1589,31 @@ def closure_program(eng3, dev) -> dict:
         cost[f"solve_{call}_call"] = prog.last
         cost[f"solve_{call}_capture_s"] = prog.last_capture_s
     said["bucket_costs"] = cost
+    # the rebuild program at the laps cell's buckets on corridor rows, K7
+    # alone beside it (``scripts/torch_rebuild_kernel.py``; the parent's
+    # per-slot program through its ``--root``)
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = str(Path(tmp) / "rows.npz")
+        rebuild_script().save_rows((512, 1024, 2048), rows)
+        said["rebuild_buckets"] = rebuild_script().measure(
+            str(ROOT), rows, (512, 1024, 2048), 5, "change", plain=False)
+    said["rebuild_launches_by_shape"] = {"x".join(map(str, k)): v for k, v in
+                                         sorted(rebuild.rebuild_shapes.items())}
+    parent = parent_root()
+    if parent is not None:
+        # the parent's program and this tree's in turns, a process a run
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "torch_rebuild_kernel.py"), "--root", parent,
+             "--buckets", "512,1024,2048", "--reps", "5"],
+            capture_output=True, text=True, timeout=900)
+        lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        said["rebuild_buckets_vs_parent"] = [
+            {k: ln[k] for k in ("tree", "bucket", "eager_ms", "capture_ms", "replay_device_ms",
+                                "planes_sha256") if k in ln} for ln in lines if "bucket" in ln]
+        said["rebuild_planes_equal_to_parent"] = next(
+            (ln["planes_equal_across_runs"] for ln in lines if "planes_equal_across_runs" in ln),
+            None)
+        assert proc.returncode == 0, proc.stderr[-3000:]
     script = spa_script()
     said["k5_leg3"] = script.kernel_alone(spa, start)
     said["buckets"] = [{k: line[k] for k in ("bucket", "program", "device_ms_per_solve",
@@ -1572,6 +1652,12 @@ def closure_program(eng3, dev) -> dict:
     rb = said["rebuild"]
     assert rb["program_captures"] == 0 and rb["program_replays"] == 1, rb
     assert all(rb["bit_equal"].values()) and rb["pub_hits_sum"] > 0, rb
+    assert all(rb["bit_equal_plain_loop"].values()), rb
+    assert [r["bucket"] for r in said["rebuild_buckets"]] == [512, 1024, 2048] and all(
+        "kernel" in r for r in said["rebuild_buckets"]), said["rebuild_buckets"]
+    if "rebuild_planes_equal_to_parent" in said:
+        equal = said["rebuild_planes_equal_to_parent"]
+        assert equal and all(equal.values()), said["rebuild_buckets_vs_parent"]
     assert [cost[f"rebuild_{c}_call"] for c in ("first", "second", "third")] == [
         "eager", "capture", "replay"], cost
     assert [cost[f"solve_{c}_call"] for c in ("first", "second")] == ["capture", "replay"], cost
@@ -1604,8 +1690,9 @@ def main() -> int:
     from roborts_slam_tpu_torch.ops import gauss_newton as gn
     from roborts_slam_tpu_torch.backend import spa
     from roborts_slam_tpu_torch.bench import gn_check
-    from roborts_slam_tpu_torch.ops.cuda import build, correlation, raycarve, spa_pcg
+    from roborts_slam_tpu_torch.ops.cuda import build, correlation, raycarve, rebuild, spa_pcg
     from roborts_slam_tpu_torch.ops.cuda import gauss_newton as gn_k
+    from roborts_slam_tpu_torch.bench import rebuild_check
     from roborts_slam_tpu_torch.utils.geometry import transform_points
 
     dev = torch.device("cuda", 0)
@@ -1703,9 +1790,9 @@ def main() -> int:
     # shapes held against the plain versions: (B, A, S, N, H, W) of the
     # correlation kernels, (P, H, W) of the carve, (B, R, H, W) of the ray
     # check, (nodes, edges) of the SPA solve's CG, (B, P, H, W) of the
-    # Gauss-Newton match
+    # Gauss-Newton match and of the rebuild's counts
     compared_corr, compared_mark, compared_check = set(), set(), set()
-    compared_pcg, compared_gn = set(), set()
+    compared_pcg, compared_gn, compared_rebuild = set(), set(), set()
 
     def compare_kernels(what, args, want):
         """Both correlation kernels on ``args`` against the plain version's
@@ -2263,9 +2350,10 @@ def main() -> int:
     def reset_counts():
         correlation.launches = correlation.launches_v2 = 0
         raycarve.mark_launches = raycarve.check_launches = 0
-        spa_pcg.pcg_launches = gn_k.gn_launches = 0
+        spa_pcg.pcg_launches = gn_k.gn_launches = rebuild.rebuild_launches = 0
         for by_shape in (correlation.launch_shapes, raycarve.mark_shapes,
-                         raycarve.check_shapes, spa_pcg.pcg_shapes, gn_k.gn_shapes):
+                         raycarve.check_shapes, spa_pcg.pcg_shapes, gn_k.gn_shapes,
+                         rebuild.rebuild_shapes):
             by_shape.clear()
 
     def read_counts():
@@ -2274,14 +2362,16 @@ def main() -> int:
                 "ray_mark_image": raycarve.mark_launches,
                 "bad_ray_count": raycarve.check_launches,
                 "spa_pcg": spa_pcg.pcg_launches,
-                "gauss_newton_match": gn_k.gn_launches}
+                "gauss_newton_match": gn_k.gn_launches,
+                "rebuild_counts": rebuild.rebuild_launches}
 
     def read_shapes():
         return {"corr": dict(correlation.launch_shapes),
                 "mark": dict(raycarve.mark_shapes),
                 "check": dict(raycarve.check_shapes),
                 "pcg": dict(spa_pcg.pcg_shapes),
-                "gn": dict(gn_k.gn_shapes)}
+                "gn": dict(gn_k.gn_shapes),
+                "rebuild": dict(rebuild.rebuild_shapes)}
 
     def pcg_entry(nodes, edges, leg):
         """K5 at one solve shape, on a loop graph padded to it, held
@@ -2337,6 +2427,52 @@ def main() -> int:
         counted_as[key] = ("gn", B, P, H, W)
         compared_gn.add((B, P, H, W))
 
+    rebuild_faults = {}
+
+    def rebuild_entry(B, P, H, W, leg):
+        """K7 at one call shape (``B`` slots of ``P`` point slots, an ``H`` x
+        ``W`` pub map) on corridor scans with padding rows and the edge cases
+        (``rebuild_check``), held against the plain loop bit for bit, timed
+        and listed; the first entry also reads two faulty kernels."""
+        spec = rebuild_check.pub_spec(max(H, W))
+        spec = dataclasses.replace(spec, height=H, width=W)
+        rows = rebuild_check.corridor_rows(B, max(1, B - B // 4), B + H, P, min(P, 1081))
+        args, first = rebuild_check.edge_cells(*rebuild_check.cells(spec, rows, dev), H, W)
+        r = rebuild_check.compare(args, first, H, W)
+        assert rebuild_check.held(r), (leg, r)
+        if not rebuild_faults:
+            small = rebuild_check.cells(spec, rebuild_check.corridor_rows(64, 48, 11, P,
+                                                                          min(P, 1081)), dev)
+            rebuild_faults.update(rebuild_check.faulty_readings(*small, H, W))
+            assert rebuild_faults["no_dedup"] > 0 and rebuild_faults["count_times_c"] > 0, \
+                rebuild_faults
+        hits, passes = rebuild_check.planes(H, W, dev)
+        call = lambda: rebuild.rebuild_counts(*args, hits, passes, *rebuild_check.FACTORS,
+                                              rebuild_check.EXTRA, first)
+        bare = rebuild.prepared_rebuild_launch(*args, hits, passes, *rebuild_check.FACTORS,
+                                               rebuild_check.EXTRA, first)
+        plain = lambda: raster.rebuild_counts_plain(*args, hits, passes,
+                                                    *rebuild_check.FACTORS,
+                                                    rebuild_check.EXTRA, first)
+        nbytes = 8 * H * W + 9 * B * (P + 1) + 9 * P + 8
+        bms, by = bound(nbytes, 0)
+        key = f"rebuild_{B}x{P}x{H}x{W}"
+        entries[key] = {
+            "name": f"rebuild_counts[{B}x{P}x{H}x{W}]", "route": "cuda",
+            "source": "roborts_slam_tpu_torch/ops/cuda/raycarve.cu",
+            "replaces": "roborts_slam_tpu/ops/raster.py:rebuild_count_map (a carve a slot)",
+            "shape": [B, P, H, W], "launches": 0, "launches_from": leg,
+            "max_abs_err": 0.0, **{k: r[k] for k in (
+                "hits_cells_differing", "passes_cells_differing", "valid_slots",
+                "cells_marked", "repeats_its_bits")},
+            "faulty_cells_differing": dict(rebuild_faults),
+            "ms": time_ms(call, reps=5), "device_us": device_us(bare),
+            "plain_ms": time_ms(plain, reps=1, warm=0, inner=1), "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "geometry": dataclasses.asdict(
+                rebuild.geometry(B, P, H, W, rebuild_check.EXTRA))}
+        counted_as[key] = ("rebuild", B, P, H, W)
+        compared_rebuild.add((B, P, H, W))
+
     def shapes_said(shapes):
         return {kind: {"x".join(map(str, k)): v for k, v in sorted(by.items())}
                 for kind, by in shapes.items()}
@@ -2376,9 +2512,13 @@ def main() -> int:
         for shape in sorted(shapes.get("gn", {})):
             if shape not in compared_gn:
                 gn_entry(*shape, leg)
+        for shape in sorted(shapes.get("rebuild", {})):
+            if shape not in compared_rebuild:
+                rebuild_entry(*shape, leg)
         for kind, launched in shapes.items():
             held = {"corr": compared_corr, "mark": compared_mark,
-                    "check": compared_check, "pcg": compared_pcg, "gn": compared_gn}[kind]
+                    "check": compared_check, "pcg": compared_pcg, "gn": compared_gn,
+                    "rebuild": compared_rebuild}[kind]
             for k in launched:
                 assert (k[1:] if kind == "corr" else k) in held, (leg, kind, k)
         for key, e in entries.items():
@@ -2714,7 +2854,11 @@ def main() -> int:
         reset_counts=reset_counts, read_counts=read_counts, read_shapes=read_shapes,
         shapes_said=shapes_said, account=account, relist=relist_rr_k1, ctx=ctx_rr1))
     spa_on_device(eng3, dev, report3)
+    reset_counts()
     closure_program(eng3, dev)
+    # every shape the phase called K7 at is held against the plain loop
+    account("closure_program", {k: (v if k == "rebuild" else {})
+                                for k, v in read_shapes().items()}, ctx_rr)
     del eng3
 
     # ---- phase 7b: leg 3's log and profile through the API in the JAX
@@ -3315,7 +3459,7 @@ def main() -> int:
     on_leg = {LEG1: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),
               LEG2: ("correlation_scores[chain",),
               LEG3: ("correlation_scores_v2[", "ray_mark_image[", "bad_ray_count[",
-                     "spa_pcg["),
+                     "spa_pcg[", "rebuild_counts["),
               LEG4: ("correlation_scores[", "ray_mark_image[", "bad_ray_count[",
                    "gauss_newton_match["),
               LEG5: ("correlation_scores[", "ray_mark_image[", "bad_ray_count["),

@@ -119,8 +119,9 @@ def _rebuild_all_maps(pub_spec, coarse_spec, fine_spec, pub: CountMap,
                       fine_blur: bool):
     """The full CorrectPoseAndMap rebuild (pub + coarse + fine,
     slam_processor.cpp:350-366) from every stored scan, written into the
-    three maps' planes in place: the pub planes zeroed and carved one batch
-    slot at a time, the match maps reset to unknown and stamped. ``valid``
+    three maps' planes in place: the pub planes counted from every batch
+    slot (one call of the rebuild kernel on the card), the match maps reset
+    to unknown and stamped. ``valid``
     masks the padding slots of a batch padded to JAX's bucket, which change
     no bit of any map."""
     rebuild_count_map(pub_spec, pub.offset, pts, msk, poses, valid, free_f, occu_f,
@@ -1607,8 +1608,8 @@ class SlamEngine:
         """The correction rebuild of every map from the store's first ``b``
         rows (JAX's bucket), as one program over a staged vector holding the
         count of stored scans: it reads the device mirror's rows and writes
-        the state's three maps in place (``_rebuild_all_maps``), one carve a
-        slot. On the card it is captured at its first call (the steps, and
+        the state's three maps in place (``_rebuild_all_maps``), its pub
+        counts one call of the rebuild kernel. On the card it is captured at its first call (the steps, and
         an eager rebuild before it, have run every operation in it) and
         replayed from then on; made anew where its key (``_rebuild_key``)
         changed: a pub growth, a mirror doubling."""

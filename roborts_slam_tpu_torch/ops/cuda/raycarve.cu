@@ -105,6 +105,41 @@
 //   7.2); with cudaMemsetAsync + atomicAdd 5.7-5.9.
 //   ptxas: walk 40 registers, fill 12, tiles 58 (2 KB shared), check 72; no
 //   spills.
+//
+// rebuild_counts (K7): the correction rebuild's pub-map counts from a batch
+// of B stored scans. It replaces no TPU kernel: JAX's `rebuild_count_map`
+// (roborts_slam_tpu/ops/raster.py) is a `lax.scan` of one carve and two
+// plane updates a padded slot, which the port ran as K3 plus six PyTorch
+// operations over the whole plane a slot (16 thousand launches at B = 2048).
+// The result is that loop's bit for bit: every increment a cell gets is one
+// float32 constant (1 + occu_factor to hits where a scan's mark is 2,
+// 1 + free_factor to passes where it is 1 or 2) and a slot that marks
+// nothing adds +0.0, so a cell's value is the sequential float32 sum of
+// `count` such constants, whatever the order. Each scan marks a cell once
+// (occupied beats free, the update_index_ rules of occu_grid_map.h:499-529);
+// scan 0 is added `extra` more times (slam_processor.cpp:351-353), as a
+// virtual slot B whose cells the caller computes as the plain version does.
+// The work is 40-70 thousand ray visits a scan, 60-100 million at B = 2048,
+// and two planes written once: a few microseconds of bytes, so it is bound by
+// the visits' atomics and the scratch traffic below. Design:
+//   - per-scan marks as bits: virtual slot v goes to chunk v % K at place
+//     i = v / K, word i % words, bit i / words; a chunk's scratch holds, per
+//     cell, `words` 32-bit words of "any mark" and as many of "endpoint".
+//     Slots that share a word lie V / 32 apart in the store, so the visits
+//     of neighbouring scans do not meet on one word. A warp walks a beam with
+//     K3's DDA (t = lane, lane + 32, ...) and sets its slot's bit with
+//     atomicOr: setting a bit twice is setting it once, which is the per-scan
+//     rule, and any order of the visits gives the same bits;
+//   - per chunk a pass over the cells adds the popcounts of the cell's words
+//     to its two integer counts (the extra slot's bit `extra` times) and
+//     clears the words for the next chunk; the last chunk's pass writes
+//     table[count] into the planes. The tables (count -> sequential float32
+//     sum) are made on the card by one thread each, t[k] = t[k-1] + c.
+// The scratch of a chunk is at most SCRATCH_BYTES of the wrapper (64 MiB: a
+// chunk of 256 slots at 1024^2), so K = ceil(V / 32 words) grows with the
+// bucket; the launches are a memset, the tables and two a chunk, their shape
+// fixed by (B, P, H, W, extra) and no value read on the host, so the whole
+// call captures into a CUDA graph.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,6 +155,18 @@ struct CheckParams {
     float min_passthrough, occu_threshold;
 };
 
+// The rebuild's scalars (K7), filled by the wrapper from its geometry.
+struct RebuildParams {
+    int B, P, H, W;
+    int extra;             // re-applications of scan 0 (virtual slot B), 0: none
+    int slots;             // virtual slots V = B + (extra > 0)
+    int chunks;            // K
+    int words;             // words a cell holds a chunk, in each of the two planes
+    int per_chunk;         // ceil(V / K): places of the fullest chunk
+    int table;             // entries of each count table: B + extra + 1
+    float occu_inc, free_inc;
+};
+
 namespace {
 
 constexpr int kNarrowMaxN = 32767;          // 2n^2 + 3n < 2^31
@@ -129,6 +176,9 @@ constexpr int kFillThreads = 256;
 constexpr int kFillBlocks = 1024;           // resident together: all start at once
 constexpr int kCheckWarps = 4;              // rays per block of the check
 constexpr int kCheckRounds = 8;             // steps a lane keeps in flight
+constexpr int kRebuildWarps = 4;            // beams a block of the rebuild's walk
+constexpr int kCountThreads = 256;
+constexpr int kCountBlocks = 8192;
 
 template <typename I>
 __device__ __forceinline__ void floor_divmod(I a, I b, I& q, I& r) {
@@ -439,6 +489,132 @@ __global__ void __launch_bounds__(32 * kCheckWarps) bad_ray_count_kernel(
     }
 }
 
+// The visits of one beam of the rebuild (K7): the beam's bit set in "any"
+// at every in-map cell of t in [0, n] and in "end" at t = n.
+template <typename I>
+__device__ __forceinline__ void rebuild_visits(
+    I sx, I sy, I ex, I ey, int lane, bool first, int H, int W, unsigned bit,
+    unsigned* any, unsigned* end)
+{
+    const I dx = ex - sx, dy = ey - sy;
+    const I n = max(max(dx < 0 ? -dx : dx, dy < 0 ? -dy : dy), (I)1);
+    Dda<I> X(dx, n, lane, 32), Y(dy, n, lane, 32);
+    for (I t = lane; t <= n; t += 32, X.step(), Y.step()) {
+        if (t == 0 && !first) continue;
+        const I cx = sx + X.q, cy = sy + Y.q;
+        if (cx < 0 || cx >= W || cy < 0 || cy >= H) continue;
+        const size_t c = (size_t)cy * W + (size_t)cx;
+        atomicOr(any + c, bit);
+        if (t == n) atomicOr(end + c, bit);
+    }
+}
+
+// One chunk's walk: block (x, y) takes beams 4x .. 4x + 3 of the slot at
+// place y of the chunk, a warp a beam; a padding slot and a masked beam
+// walk nothing.
+__global__ void __launch_bounds__(32 * kRebuildWarps) rebuild_mark_kernel(
+    const int* __restrict__ start,               // (B, 2)
+    const int* __restrict__ end,                 // (B, P, 2)
+    const unsigned char* __restrict__ beam_mask, // (B, P)
+    const unsigned char* __restrict__ slot_valid,// (B,)
+    const int* __restrict__ start0,              // (2,)   the extra slot's cells
+    const int* __restrict__ end0,                // (P, 2)
+    const unsigned char* __restrict__ beams0,    // (P,)
+    const RebuildParams prm, int chunk,
+    unsigned* bits)                              // (2, words, H, W)
+{
+    const int i = blockIdx.y;
+    const int v = chunk + prm.chunks * i;
+    const int p = blockIdx.x * kRebuildWarps + threadIdx.x / 32;
+    if (v >= prm.slots || p >= prm.P) return;
+    const bool extra = v == prm.B;
+    if (!extra && !slot_valid[v]) return;
+    const unsigned char* mask = extra ? beams0 : beam_mask + (size_t)v * prm.P;
+    if (!mask[p]) return;
+    const int* s = extra ? start0 : start + 2 * (size_t)v;
+    const int* e = extra ? end0 + 2 * (size_t)p : end + 2 * ((size_t)v * prm.P + p);
+    const int sx = s[0], sy = s[1], ex = e[0], ey = e[1];
+    // t = 0 is the sensor's cell for every beam of the slot: the first beam
+    // of a run of valid beams marks it for the run
+    const bool first = p == 0 || !mask[p - 1];
+    const size_t cells = (size_t)prm.H * prm.W;
+    const int j = i % prm.words;
+    const unsigned bit = 1u << (i / prm.words);
+    unsigned* any = bits + (size_t)j * cells;
+    unsigned* ends = bits + (size_t)(prm.words + j) * cells;
+    const int lane = threadIdx.x % 32;
+    if (is_narrow(sx, sy, ex, ey))
+        rebuild_visits<int>(sx, sy, ex, ey, lane, first, prm.H, prm.W, bit, any, ends);
+    else
+        rebuild_visits<long long>(sx, sy, ex, ey, lane, first, prm.H, prm.W, bit, any, ends);
+}
+
+// One chunk's count: a thread a cell adds the popcounts of its words to its
+// counts (the first chunk from 0) and clears the words, or, after the last
+// chunk, writes each count's float32 sum into the planes.
+__global__ void __launch_bounds__(kCountThreads) rebuild_count_kernel(
+    const RebuildParams prm, int chunk,
+    unsigned* bits,                              // (2, words, H, W)
+    int* counts,                                 // (2, H, W): passes, hits
+    const float* __restrict__ tables,            // (2, table): hits, passes
+    float* hits, float* passes)                  // (H, W)
+{
+    const size_t cells = (size_t)prm.H * prm.W;
+    const bool first = chunk == 0, last = chunk == prm.chunks - 1;
+    // the extra slot's word and bit, where this chunk holds it
+    int ej = -1, eb = 0;
+    if (prm.extra > 0 && prm.B % prm.chunks == chunk) {
+        const int i = prm.B / prm.chunks;
+        ej = i % prm.words;
+        eb = i / prm.words;
+    }
+    const int more = prm.extra - 1;
+    const size_t stride = (size_t)gridDim.x * kCountThreads;
+    for (size_t c = (size_t)blockIdx.x * kCountThreads + threadIdx.x; c < cells; c += stride) {
+        int np = first ? 0 : counts[c];
+        int nh = first ? 0 : counts[cells + c];
+        for (int j = 0; j < prm.words; ++j) {
+            unsigned* a = bits + (size_t)j * cells + c;
+            unsigned* o = bits + (size_t)(prm.words + j) * cells + c;
+            const unsigned av = *a, ov = *o;
+            np += __popc(av);
+            nh += __popc(ov);
+            if (j == ej) {
+                np += more * (int)((av >> eb) & 1u);
+                nh += more * (int)((ov >> eb) & 1u);
+            }
+            if (!last) {
+                if (av) *a = 0u;
+                if (ov) *o = 0u;
+            }
+        }
+        if (last) {
+            hits[c] = tables[nh];
+            passes[c] = tables[prm.table + np];
+        } else {
+            counts[c] = np;
+            counts[cells + c] = nh;
+        }
+    }
+}
+
+// The two count tables, t[0] = 0 and t[k] = t[k-1] + inc in float32, one
+// thread (in a warp of its own) each: what `count` sequential adds give.
+__global__ void __launch_bounds__(64) rebuild_table_kernel(const RebuildParams prm,
+                                                           float* tables)
+{
+    if (threadIdx.x % 32) return;
+    const bool hit = threadIdx.x == 0;
+    float* t = tables + (hit ? 0 : prm.table);
+    const float inc = hit ? prm.occu_inc : prm.free_inc;
+    float v = 0.0f;
+    t[0] = v;
+    for (int k = 1; k < prm.table; ++k) {
+        v = __fadd_rn(v, inc);
+        t[k] = v;
+    }
+}
+
 template <int TH, int TW, int NT>
 void launch_tiles(const int* start, const int* end, const unsigned char* beam_mask,
                   int P, int H, int W, int* mark, cudaStream_t stream)
@@ -526,4 +702,41 @@ extern "C" int bad_ray_count_launch(
     bad_ray_count_kernel<<<grid, 32 * kCheckWarps, 0, stream>>>(
         start, end, ray_ok, hits, passes, prm, out, tickets);
     return static_cast<int>(cudaGetLastError());
+}
+
+// K7 into `hits` and `passes` (every cell written). `scratch`: 2 * words *
+// H * W words of bits, then (with more than one chunk) 2 * H * W counts,
+// then the two tables of `table` floats; the bits need no zeroing before.
+extern "C" int rebuild_counts_launch(
+    const int* start, const int* end, const unsigned char* beam_mask,
+    const unsigned char* slot_valid, const int* start0, const int* end0,
+    const unsigned char* beams0, float* hits, float* passes, unsigned* scratch,
+    const RebuildParams* params, void* stream_)
+{
+    const RebuildParams prm = *params;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+    const size_t cells = (size_t)prm.H * prm.W;
+    if (cells == 0) return 0;
+    unsigned* bits = scratch;
+    int* counts = reinterpret_cast<int*>(bits + 2 * (size_t)prm.words * cells);
+    float* tables = reinterpret_cast<float*>(counts + (prm.chunks > 1 ? 2 * cells : 0));
+    cudaError_t err = cudaMemsetAsync(bits, 0, 2 * (size_t)prm.words * cells * sizeof(unsigned),
+                                      stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rebuild_table_kernel<<<1, 64, 0, stream>>>(prm, tables);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    const dim3 walk((prm.P + kRebuildWarps - 1) / kRebuildWarps, prm.per_chunk);
+    const unsigned blocks = (unsigned)min((cells + kCountThreads - 1) / kCountThreads,
+                                          (size_t)kCountBlocks);
+    for (int k = 0; k < prm.chunks; ++k) {
+        if (prm.P > 0) {
+            rebuild_mark_kernel<<<walk, 32 * kRebuildWarps, 0, stream>>>(
+                start, end, beam_mask, slot_valid, start0, end0, beams0, prm, k, bits);
+            if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+        }
+        rebuild_count_kernel<<<blocks, kCountThreads, 0, stream>>>(
+            prm, k, bits, counts, tables, hits, passes);
+        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
 }

@@ -12,6 +12,9 @@ serial Bresenham + per-cell blur stamping, occu_grid_map.h:125-329,531-576):
   occu_grid_map.h:499-529), after which hit/pass counts update image-wise.
   On the card the mark image comes from the CUDA carve kernel
   (``ops/cuda/raycarve.cu``); ``mark_image_plain`` is its plain version.
+  The correction rebuild's counts of a whole batch of scans come from one
+  call of the rebuild kernel (``ops/cuda/rebuild.py``), whose plain
+  version is ``rebuild_counts_plain``.
 
 Where the JAX package returns new immutable maps (and donates the old
 buffers), the update functions here write the map tensors **in place** and
@@ -33,6 +36,7 @@ from ..models.grid_map import (
 from ..utils.geometry import transform_points
 from .cuda.launch import capturing_now
 from .cuda.raycarve import ray_mark_image
+from .cuda.rebuild import rebuild_counts
 
 
 def _cell_round(x):
@@ -299,39 +303,57 @@ def _add_marks(cmap: CountMap, mark, free_factor, occu_factor, gate=None) -> Cou
     return cmap
 
 
+def rebuild_counts_plain(start, end, beam_mask, slot_valid, hits, passes, free_factor,
+                         occu_factor, extra: int = 0, first=None):
+    """Plain PyTorch version of the rebuild kernel (K7), same arguments as
+    ``ops.cuda.rebuild.rebuild_counts``: ``hits`` and ``passes`` zeroed, then
+    one carve (``mark_image_plain``) and one update (``_add_marks``) a
+    batch slot, as JAX's ``lax.scan`` runs one per padded scan (a slot that
+    ``slot_valid`` masks carves no beam and adds zeros, which leave the
+    counts' bits as they are), then scan 0's mark image (``first``: its
+    cells) added ``extra`` more times."""
+    counts = CountMap(hits=hits.zero_(), passes=passes.zero_(), offset=None)
+    H, W = hits.shape
+    for i in range(start.shape[0]):
+        mark = mark_image_plain(start[i], end[i], beam_mask[i] & slot_valid[i], H, W)
+        _add_marks(counts, mark, free_factor, occu_factor)
+    if extra:
+        mark = mark_image_plain(*first, H, W)
+        for _ in range(extra):
+            _add_marks(counts, mark, free_factor, occu_factor)
+    return hits, passes
+
+
 def rebuild_count_map(spec: CountMapSpec, cmap_offset, points_b, mask_b,
                       poses_b, scan_valid, free_factor, occu_factor,
                       first_scan_extra: int = 0, out: CountMap | None = None) -> CountMap:
     """Rebuild the pub map from scratch over a batch of scans.
 
-    Count updates are additive and commute; the rebuild is a loop of
-    per-scan mark images folded into fresh hit/pass planes (one mark image
-    per scan, so per-scan idempotence holds), one carve per batch slot as
-    JAX's ``lax.scan`` runs one per padded scan: a slot that ``scan_valid``
-    masks carves no beam and adds zeros, which leave the counts' bits as
-    they are. The cells of every slot's rays are computed for the batch at
-    once (elementwise, so each slot's are those of a scan alone), which
-    leaves the carve and six operations a slot. The equivalent of
-    CorrectPoseAndMap's InitMapWithRangeVec rebuild
-    (slam_processor.cpp:350-356), including the quirk of re-applying scan 0
-    ``min_passthrough`` extra times (:351-353). ``out``: a map whose planes
-    are zeroed and rebuilt in place (its offset is the one used)."""
+    Count updates are additive and commute; the rebuild folds one mark
+    image per scan (so per-scan idempotence holds) into fresh hit/pass
+    planes: on the card in one call of the rebuild kernel (K7,
+    ``ops/cuda/rebuild.py``), for CPU tensors as the loop of one carve a
+    batch slot (``rebuild_counts_plain``), bit for bit the same. The cells
+    of every slot's rays are computed for the batch at once (elementwise, so
+    each slot's are those of a scan alone); a slot that ``scan_valid`` masks
+    marks nothing. The equivalent of CorrectPoseAndMap's InitMapWithRangeVec
+    rebuild (slam_processor.cpp:350-356), including the quirk of re-applying
+    scan 0 ``min_passthrough`` extra times (:351-353), whose cells are
+    computed as a one-scan update computes them. ``out``: a map whose planes
+    are rebuilt in place (its offset is the one used)."""
     dev = points_b.device
     if out is None:
         out = CountMap(
-            hits=torch.zeros((spec.height, spec.width), dtype=torch.float32, device=dev),
-            passes=torch.zeros((spec.height, spec.width), dtype=torch.float32, device=dev),
+            hits=torch.empty((spec.height, spec.width), dtype=torch.float32, device=dev),
+            passes=torch.empty((spec.height, spec.width), dtype=torch.float32, device=dev),
             offset=torch.as_tensor(cmap_offset, dtype=torch.float32, device=dev),
         )
-    else:
-        out.hits.zero_()
-        out.passes.zero_()
-    start, end, beams = _scan_cells(spec.inv_res, out.offset, points_b,
-                                    mask_b & scan_valid[:, None], poses_b)
-    for i in range(points_b.shape[0]):
-        mark = ray_mark_image(start[i], end[i], beams[i], spec.height, spec.width)
-        _add_marks(out, mark, free_factor, occu_factor)
-    for _ in range(first_scan_extra):
-        update_count_map(spec, out, points_b[0], mask_b[0], poses_b[0],
-                         free_factor, occu_factor)
+    start, end, beams = _scan_cells(spec.inv_res, out.offset, points_b, mask_b, poses_b)
+    first = None
+    if first_scan_extra:
+        first = tuple(t.contiguous() for t in _scan_cells(
+            spec.inv_res, out.offset, points_b[0], mask_b[0], poses_b[0]))
+    rebuild_counts(start.contiguous(), end.contiguous(), beams.contiguous(),
+                   scan_valid.contiguous(), out.hits, out.passes, free_factor, occu_factor,
+                   first_scan_extra, first)
     return out

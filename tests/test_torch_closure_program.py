@@ -415,16 +415,20 @@ def test_first_correction_rebuilds_eagerly(icra):
 
 def test_pub_clip_rebuild_carves_exact_rows(icra, monkeypatch):
     """The pub-only clip rebuild (``_rebuild_pub``) carves the stored scans
-    and the re-applications of scan 0, none of a bucket's padding slots."""
+    and the re-applications of scan 0, none of a bucket's padding slots:
+    the rebuild's one call takes the exact rows, every one valid, and scan
+    0's cells ``map_min_passthrough`` more times."""
     eng = _engine(icra)
-    carves = []
-    carve = traster.ray_mark_image
+    calls = []
+    rebuild = traster.rebuild_counts
 
-    def counted(*a):
-        carves.append(1)
-        return carve(*a)
+    def counted(start, end, beam_mask, slot_valid, *a, **kw):
+        calls.append((start.shape[0], bool(slot_valid.all()), a[4]))
+        return rebuild(start, end, beam_mask, slot_valid, *a, **kw)
 
-    monkeypatch.setattr(traster, "ray_mark_image", counted)
+    monkeypatch.setattr(traster, "rebuild_counts", counted)
     with eng._state_lock:
         eng._rebuild_pub()
-    assert len(carves) == len(eng.store) + int(eng.config.map_min_passthrough) < 64
+    extra = int(eng.config.map_min_passthrough)
+    assert calls == [(len(eng.store), True, extra)]
+    assert len(eng.store) + extra < 64
