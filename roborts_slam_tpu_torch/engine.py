@@ -78,7 +78,7 @@ from .frontend.processor import (
 )
 from .io.dedistort import dedistort_scan
 from .models.scan import LaserModel, pack_points, ranges_to_packed
-from .models.grid_map import CountMap, ProbMap, count_map_states, make_prob_map
+from .models.grid_map import CountMap, ProbMap, count_map_states
 from .ops.cuda.correlation import kernel_version
 from .ops.raster import rebuild_count_map, stamp_scan_batch
 from .step_graph import StepGraph, signature, stage, staged_size, unstage
@@ -96,21 +96,16 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-def _stamp_match_maps(coarse_spec, fine_spec, coarse_off, fine_off,
-                      pts, msk, poses, valid, coarse_blur: bool,
-                      fine_blur: bool):
-    """Fresh coarse+fine match maps stamped from a scan batch (the
-    correction rebuild and the rolling-window recenter)."""
-    def fresh(spec, off):
-        return make_prob_map(spec, off, pts.device)
-
-    if pts.shape[0] == 0:       # no scan in reach: both maps stay unknown
-        return fresh(coarse_spec, coarse_off), fresh(fine_spec, fine_off)
-    coarse = stamp_scan_batch(coarse_spec, fresh(coarse_spec, coarse_off),
-                              pts, msk, poses, valid, use_blur=coarse_blur)
-    fine = stamp_scan_batch(fine_spec, fresh(fine_spec, fine_off),
-                            pts, msk, poses, valid, use_blur=fine_blur)
-    return coarse, fine
+def _refill_match_maps(coarse_spec, fine_spec, coarse: ProbMap, fine: ProbMap,
+                       pts, msk, poses, valid, coarse_blur: bool, fine_blur: bool):
+    """Reset both match maps' planes to unknown and stamp a scan batch into
+    them, in place (the correction rebuild and the rolling-window
+    recenter): the same bits as fresh maps stamped."""
+    for spec, pmap, blur in ((coarse_spec, coarse, coarse_blur),
+                             (fine_spec, fine, fine_blur)):
+        pmap.probs.fill_(spec.default_prob)
+        if pts.shape[0]:
+            stamp_scan_batch(spec, pmap, pts, msk, poses, valid, use_blur=blur)
 
 
 def _rebuild_all_maps(pub_spec, coarse_spec, fine_spec, pub: CountMap,
@@ -126,10 +121,8 @@ def _rebuild_all_maps(pub_spec, coarse_spec, fine_spec, pub: CountMap,
     no bit of any map."""
     rebuild_count_map(pub_spec, pub.offset, pts, msk, poses, valid, free_f, occu_f,
                       first_scan_extra=first_scan_extra, out=pub)
-    for spec, pmap, blur in ((coarse_spec, coarse, coarse_blur),
-                             (fine_spec, fine, fine_blur)):
-        pmap.probs.fill_(spec.default_prob)
-        stamp_scan_batch(spec, pmap, pts, msk, poses, valid, use_blur=blur)
+    _refill_match_maps(coarse_spec, fine_spec, coarse, fine, pts, msk, poses, valid,
+                       coarse_blur, fine_blur)
 
 
 def _upload(dst: torch.Tensor, src: np.ndarray):
@@ -412,17 +405,12 @@ class EngineDiagnostics:
     # ("batch_b<B>")
     captures_by_key: dict = dataclasses.field(default_factory=dict)
     replays_by_key: dict = dataclasses.field(default_factory=dict)
-    # the loop closure's programs (JAX's solve and rebuild per bucket): the
-    # solve's path ("graph: cg kernel" or "eager: <why>") and the correction
-    # rebuild's ("graph" or "eager: <why>"); their captures and replays are counted
-    # above by program ("solve_<nodes>x<edges>": one a solve,
-    # "rebuild_<bucket>": one a correction); corrections rebuilt eagerly from
-    # the exact rows (the first at a rebuild program's key); LM iterations
-    # and CG steps the last solve executed; seconds spent capturing either
-    # program
+    # the loop closure's solve program per bucket: its path ("graph: cg
+    # kernel" or "eager: <why>"), its captures and replays counted above by
+    # program ("solve_<nodes>x<edges>", one a solve); LM iterations and CG
+    # steps the last solve executed; seconds spent capturing it. The
+    # correction rebuild runs eagerly
     closure_path: str = ""
-    rebuild_path: str = ""
-    eager_rebuilds: int = 0
     solve_lm_iters: int = 0
     solve_cg_steps: int = 0
     closure_capture_s: float = 0.0
@@ -532,15 +520,7 @@ class SlamEngine:
         self.backend.capture = self.diag.step_graph == "graph"
         self.backend.diag = self.diag
         self.backend.timers = self.timers
-        # the correction rebuild's programs by bucket (``_rebuild_program``),
-        # captured on the card unless ``step_graph`` is off, and the key of
-        # each bucket's latest eager rebuild (``_rebuild_maps``); the solve's
-        # programs are the back end's (``spa.solve_program``)
-        self._rebuild_programs: dict = {}
-        self._rebuild_seen: dict = {}
         self.diag.closure_path = closure_path(self.device)
-        self.diag.rebuild_path = ("eager: cpu tensors" if self.device.type != "cuda"
-                                  else "graph" if step_graph else "eager: step_graph=False")
         # the packed summary of the latest step, as read (float64)
         self.last_summary: np.ndarray | None = None
 
@@ -891,23 +871,6 @@ class SlamEngine:
                                    None if ids is None else ids.shape)
         with self.timers.stage("frontend_fetch"):
             return packed.cpu().numpy().astype(np.float64)
-
-    def _install_maps(self, pub=None, coarse=None, fine=None):
-        """Write rebuilt maps into the state's own buffers, which the step
-        programs hold; a map whose shape changed (the pub map grew) takes
-        its new buffers, and the programs are captured again. Callers hold
-        the state lock."""
-        st = self.state
-        for name, new in (("pub", pub), ("coarse", coarse), ("fine", fine)):
-            if new is None:
-                continue
-            old = getattr(st, name)
-            if all(o.shape == n.shape for o, n in zip(old, new)):
-                for o, n in zip(old, new):
-                    if o is not n:
-                        o.copy_(n)
-            else:
-                setattr(st, name, new)
 
     # ---- the fused step's chain rows (JAX engine.py:1084-1168) ----
 
@@ -1426,14 +1389,13 @@ class SlamEngine:
 
     def _rebuild_pub(self):
         """Rebuild the pub map from every stored scan at its current pose
-        (InitMapWithRangeVec on the pub map, slam_processor.cpp:350-366).
-        Callers hold the state lock."""
+        (InitMapWithRangeVec on the pub map, slam_processor.cpp:350-366),
+        into the state's own planes. Callers hold the state lock."""
         cfg = self.config
         pts, msk, poses, valid = self.store.all_arrays(len(self.store))
-        self._install_maps(pub=rebuild_count_map(
-            self.fspec.pub_spec, self.state.pub.offset, pts, msk, poses,
-            valid, cfg.map_update_free_factor, cfg.map_update_occu_factor,
-            first_scan_extra=int(cfg.map_min_passthrough)))
+        rebuild_count_map(self.fspec.pub_spec, self.state.pub.offset, pts, msk, poses,
+                          valid, cfg.map_update_free_factor, cfg.map_update_occu_factor,
+                          first_scan_extra=int(cfg.map_min_passthrough), out=self.state.pub)
         self._publish_pub_arrays()
 
     def _grow_pub_to(self, new_w: int, new_h: int,
@@ -1498,10 +1460,10 @@ class SlamEngine:
 
     def _rebuild_match_maps_at(self, fine_off: np.ndarray,
                                coarse_off: np.ndarray, upto: int | None = None):
-        """Fresh fine+coarse match maps at the given offsets, stamped from
-        the stored scans within beam reach of the new window — exactly those
-        (the JAX package pads the batch to size buckets only to bound
-        recompilation). Keeps the host mirrors of both offsets in step.
+        """The fine+coarse match maps moved to the given offsets, reset and
+        stamped in place from the stored scans within beam reach of the new
+        window — exactly those (the JAX package pads the batch to size
+        buckets only to bound recompilation). Keeps the host mirrors of both offsets in step.
         Callers hold the state lock. Spanned as ``recenter``."""
         with self.timers.stage("recenter"):
             self._restamp_match_maps(fine_off, coarse_off, upto)
@@ -1521,12 +1483,11 @@ class SlamEngine:
         if len(poses):
             d = np.abs(poses[:, :2] - center_new[None]).max(1)
             ids = np.flatnonzero(d <= reach)
-        f32 = dict(dtype=torch.float32, device=self.device)
-        coarse, fine = _stamp_match_maps(
-            cs, fs, torch.as_tensor(coarse_off, **f32),
-            torch.as_tensor(fine_off, **f32), *self.store.gather(ids),
-            bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
-        self._install_maps(coarse=coarse, fine=fine)
+        st = self.state
+        for pmap, off in ((st.coarse, coarse_off), (st.fine, fine_off)):
+            pmap.offset.copy_(torch.as_tensor(off, dtype=torch.float32))
+        _refill_match_maps(cs, fs, st.coarse, st.fine, *self.store.gather(ids),
+                           bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
 
     # ---- corrections (CorrectPoseAndMap, slam_processor.cpp:329-370) ----
 
@@ -1587,15 +1548,6 @@ class SlamEngine:
                 self.trajectory[i] = (t, self.store.poses[i].copy())
             self._publish_pub_arrays()
 
-    def _rebuild_key(self, b: int) -> tuple:
-        """The key of the rebuild program at bucket ``b``: the bucket, the
-        specs and the addresses and shapes of the maps it writes and of the
-        mirror's rows it reads, as ``_program`` keys the steps."""
-        st = self.state
-        specs = (self.fspec.pub_spec, self.fspec.coarse_spec, self.fspec.fine_spec)
-        return (b, specs, signature([*st.pub, *st.coarse, *st.fine,
-                                     *self.store.device_arrays()]))
-
     def _rebuild_all(self, pts, msk, poses, valid):
         """``_rebuild_all_maps`` of the given rows into the state's maps."""
         st, fs, cfg = self.state, self.fspec, self.config
@@ -1604,69 +1556,15 @@ class SlamEngine:
                           cfg.map_update_occu_factor, int(cfg.map_min_passthrough),
                           bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
 
-    def _rebuild_program(self, b: int) -> StepGraph:
-        """The correction rebuild of every map from the store's first ``b``
-        rows (JAX's bucket), as one program over a staged vector holding the
-        count of stored scans: it reads the device mirror's rows and writes
-        the state's three maps in place (``_rebuild_all_maps``), its pub
-        counts one call of the rebuild kernel. On the card it is captured at its first call (the steps, and
-        an eager rebuild before it, have run every operation in it) and
-        replayed from then on; made anew where its key (``_rebuild_key``)
-        changed: a pub growth, a mirror doubling."""
-        key = self._rebuild_key(b)
-        prog = self._rebuild_programs.get(b)
-        if prog is not None and prog.key == key:
-            return prog
-        if prog is not None:
-            prog.release()
-        pts, msk, poses = (r[:b] for r in self.store.device_arrays())
-        dev = self.device
-
-        def fn(staged):
-            valid = torch.arange(b, device=dev) < staged[0]
-            self._rebuild_all(pts, msk, poses, valid)
-            return valid
-
-        prog = StepGraph(fn, 1, dev, capture=self.diag.rebuild_path == "graph",
-                         capture_first=True)
-        prog.key = key
-        self._rebuild_programs[b] = prog
-        return prog
-
-    def _rebuild_maps(self, bucket: int | None = None):
-        """Rebuild every map from the stored scans at their current poses.
-        The first correction at a key of the store's bucket (``_rebuild_key``)
-        rebuilds eagerly from the exact rows, so that a lone closure pays
-        no capture; the second makes the bucket's program and every later
-        one replays it. ``bucket`` (``warm_backend``): through the program at
-        that bucket at once. Counts the eager rebuild, the capture or the
-        replay in ``diag``. Callers hold the state lock."""
-        store = self.store
-        with store._lock:
-            n = len(store)
-            b = solver_bucket(n) if bucket is None else bucket
-            store.all_arrays(b)                   # the mirror's rows up to date
-            key, prog = self._rebuild_key(b), self._rebuild_programs.get(b)
-            if (bucket is None and (prog is None or prog.key != key)
-                    and self._rebuild_seen.get(b) != key):
-                self._rebuild_seen[b] = key
-                self._rebuild_all(*store.all_arrays(n))
-                self.diag.eager_rebuilds += 1
-                return
-            prog = self._rebuild_program(b)
-            host = torch.tensor([n], dtype=torch.float32)
-            if prog.staged.is_cuda:
-                host = host.pin_memory()
-            prog.staged.copy_(host, non_blocking=True)
+    def _rebuild_maps(self):
+        """Rebuild every map from the stored scans at their current poses,
+        eagerly from the exact rows into the state's own planes (the device
+        mirror's rows brought up to date first); its device time is
+        ``device.rebuild``. Callers hold the state lock."""
+        with self.store._lock:
             pair = self.timers.device_start(self.device)
-            prog()
-            self.timers.device_stop(pair, "device.rebuild", prog.last == "replay")
-        d, name = self.diag, f"rebuild_{b}"
-        if prog.last != "eager":
-            d.replays_by_key[name] = d.replays_by_key.get(name, 0) + 1
-        if prog.last == "capture":
-            d.captures_by_key[name] = d.captures_by_key.get(name, 0) + 1
-            d.closure_capture_s += prog.last_capture_s
+            self._rebuild_all(*self.store.all_arrays(len(self.store)))
+            self.timers.device_stop(pair, "device.rebuild")
 
     # ---- fixed-rate pose stream (PublishTransform thread analog,
     #      roborts_slam_node.cpp:178-196) ----
@@ -1821,15 +1719,16 @@ class SlamEngine:
         instead, where it runs), recording the fused step's peak memory on
         the card; make the solve's program at each of ``solver_buckets``
         (nodes ``bn``, edges ``bn`` and ``2·bn``, those the live graph has
-        not outgrown) by solving the live graph padded to it; and make the
-        correction rebuild's program at each of ``rebuild_buckets`` that
-        holds the live store and that the store's device mirror holds (a
-        larger one comes with a mirror doubling, which makes a new program
-        anyway) by rebuilding from the live store. Results are discarded
-        and no engine, store or graph state changes (the back end's counters
-        are put back, the maps restored; the programs' captures are counted
-        in ``diag``), so a run continued after warming equals the unwarmed
-        run bit for bit. Call it after the first scan."""
+        not outgrown) by solving the live graph padded to it; and run the
+        correction rebuild once, eagerly, at each of ``rebuild_buckets`` that
+        holds the live store and that the store's device mirror holds, from
+        the live rows padded to it (its kernels built and the allocator's
+        blocks of that size made; nothing is captured: the rebuild always
+        runs eagerly). Results are discarded and no engine, store or graph
+        state changes (the back end's counters are put back, the maps
+        restored; the solve programs' captures are counted in ``diag``), so
+        a run continued after warming equals the unwarmed run bit for bit.
+        Call it after the first scan."""
         from .backend.spa import solve_packed
 
         if len(self.store) == 0:
@@ -1870,9 +1769,10 @@ class SlamEngine:
                 st = self.state
                 planes = (st.pub.hits, st.pub.passes, st.coarse.probs, st.fine.probs)
                 kept = [t.clone() for t in planes]
-                for b in rebuild_buckets:
-                    if len(self.store) <= b <= self.store._dev_cap:
-                        self._rebuild_maps(b)
+                with self.store._lock:
+                    for b in rebuild_buckets:
+                        if len(self.store) <= b <= self.store._dev_cap:
+                            self._rebuild_all(*self.store.all_arrays(b))
                 for t, k in zip(planes, kept):
                     t.copy_(k)
             if self.device.type == "cuda":

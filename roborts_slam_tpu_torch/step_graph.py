@@ -26,7 +26,6 @@ from __future__ import annotations
 import contextlib
 import gc
 import threading
-import time
 
 import torch
 
@@ -118,32 +117,24 @@ class StepGraph:
     (``launch.capturing``) are added on every replay; the ray check's
     scratch words are the graph's own, made and zeroed before the capture.
     A capture that fails raises; nothing falls back to eager launches.
-    With ``capture_first`` the first call captures and replays, with no
-    eager warm-up: for a program whose every operation has run eagerly
-    elsewhere before (a map rebuild after the steps that carved and stamped
-    the same maps). Elsewhere (the CPU, or ``capture`` off) every call runs
-    ``fn`` eagerly. ``last`` says what the latest call did: "eager",
-    "capture" (then replayed) or "replay"; ``last_capture_s`` the seconds
-    its capture took."""
+    Elsewhere (the CPU, or ``capture`` off) every call runs ``fn`` eagerly.
+    ``last`` says what the latest call did: "eager", "capture" (then
+    replayed) or "replay"."""
 
-    def __init__(self, fn, size: int, device, capture: bool = True,
-                 capture_first: bool = False):
+    def __init__(self, fn, size: int, device, capture: bool = True):
         self.fn = fn
         self.staged = torch.zeros((size,), dtype=torch.float32, device=device)
         self.capture = capture and self.staged.is_cuda
-        self.capture_first = capture_first
         self.graph = None
         self.out = None
         self.launches: list = []          # (counter, args) of the captured launches
         self.scratch: dict = {}
         self.calls = self.replays = self.captures = 0
         self.last = None
-        self.last_capture_s = 0.0
 
     def __call__(self) -> torch.Tensor:
         self.calls += 1
-        self.last_capture_s = 0.0
-        if not self.capture or (self.calls == 1 and not self.capture_first):
+        if not self.capture or self.calls == 1:
             self.last = "eager"
             return self.fn(self.staged)
         self.last = "replay"
@@ -179,7 +170,6 @@ class StepGraph:
             torch.ones((1, 1, 1), device=dev) @ torch.ones((1, 1, 1), device=dev)
         graph = torch.cuda.CUDAGraph()
         launches: list = []
-        t = time.perf_counter()
         with capture_guard(), torch.cuda.stream(side), \
                 launch.capturing(launches, self.scratch):
             graph.capture_begin(capture_error_mode="thread_local")
@@ -188,6 +178,5 @@ class StepGraph:
             finally:
                 graph.capture_end()
         main.wait_stream(side)
-        self.last_capture_s = time.perf_counter() - t
         self.graph, self.out, self.launches = graph, out, launches
         self.captures += 1

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The correction rebuild on the card: its program at store buckets, this
-tree against a parent's in turns, and the rebuild kernel (K7) alone.
+"""The correction rebuild on the card: eager at store buckets, this tree
+against a parent's in turns, and the rebuild kernel (K7) alone.
 
     python3 scripts/torch_rebuild_kernel.py [--buckets 512,1024,2048]
                                             [--root PARENT] [--reps 10]
@@ -12,10 +12,10 @@ benchmark's loop, 1152 point slots, the first 71 % valid as the laps cell's
 A run is a process that imports one tree's package (``--worker``): an
 engine of the real-robot profile (1024² pub, 256² coarse, 640² fine maps),
 then per bucket the rebuild of its three maps (``engine._rebuild_all_maps``)
-as the engine's rebuild program runs it (``StepGraph`` with
-``capture_first``, as ``_rebuild_program``): two eager calls (ms to a
-synchronise), the first call of the program (its capture, and a replay),
-device ms a replay (CUDA events, median of ``--reps``), and a hash of the
+launched eagerly, as the engine's correction runs it: the first call (ms to
+a synchronise: kernels built, the allocator's blocks made), then
+``--reps`` calls each timed by CUDA events (device ms) and by the host
+clock to a synchronise (host ms), medians and ranges, and a hash of the
 four planes it wrote (pub hits and passes, coarse, fine). With ``--root``
 the parent's tree runs too (parent, change, change, parent): the hashes
 must agree. This tree's runs add K7 alone per bucket (``kernel``: device µs
@@ -139,7 +139,6 @@ def measure(tree: str, rows_path: str, buckets, reps: int, tag: str, plain: bool
     import roborts_slam_tpu_torch
     from roborts_slam_tpu_torch.engine import _rebuild_all_maps
     from roborts_slam_tpu_torch.ops.cuda import build
-    from roborts_slam_tpu_torch.step_graph import StepGraph
 
     build.build_all()
     dev = torch.device("cuda", 0)
@@ -154,39 +153,36 @@ def measure(tree: str, rows_path: str, buckets, reps: int, tag: str, plain: bool
                                   for k in ("pts", "msk", "poses", "valid"))
         n = int(valid.sum())
 
-        def fn(staged):
-            v = torch.arange(b, device=dev) < staged[0]
+        def rebuild():
             _rebuild_all_maps(fs.pub_spec, fs.coarse_spec, fs.fine_spec, st.pub, st.coarse,
-                              st.fine, pts, msk, poses, v, cfg.map_update_free_factor,
+                              st.fine, pts, msk, poses, valid, cfg.map_update_free_factor,
                               cfg.map_update_occu_factor, int(cfg.map_min_passthrough),
                               bool(cfg.coarse_map_use_blur), bool(cfg.fine_map_use_blur))
-            return v
 
-        staged = torch.full((1,), float(n), device=dev)
-        eager = [_sync_ms(lambda: fn(staged)) for _ in range(2)]
-        prog = StepGraph(fn, 1, dev, capture=True, capture_first=True)
-        prog.staged.copy_(staged)
-        first_ms = _sync_ms(prog)
-        capture_s = prog.last_capture_s
-        times = []
+        first_ms = _sync_ms(rebuild)
+        device_ms, host_ms = [], []
         for _ in range(reps):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
             ev[0].record()
-            prog()
+            rebuild()
             ev[1].record()
             torch.cuda.synchronize()
-            times.append(ev[0].elapsed_time(ev[1]))
-        times.sort()
+            host_ms.append(1e3 * (time.perf_counter() - t))
+            device_ms.append(ev[0].elapsed_time(ev[1]))
+        device_ms.sort()
+        host_ms.sort()
         digest = hashlib.sha256()
         for t in (st.pub.hits, st.pub.passes, st.coarse.probs, st.fine.probs):
             digest.update(t.cpu().numpy().tobytes())
         line = {"tree": tag, "bucket": b, "valid": n, "pub": list(st.pub.hits.shape),
-                "eager_ms": eager, "program_first_call_ms": first_ms,
-                "capture_ms": 1e3 * capture_s, "replay_device_ms": times[len(times) // 2],
-                "replay_device_ms_range": [times[0], times[-1]],
+                "first_call_ms": first_ms, "device_ms": device_ms[len(device_ms) // 2],
+                "device_ms_range": [device_ms[0], device_ms[-1]],
+                "host_ms": host_ms[len(host_ms) // 2],
+                "host_ms_range": [host_ms[0], host_ms[-1]],
                 "planes_sha256": digest.hexdigest()[:16],
                 "pub_hits_sum": float(st.pub.hits.sum())}
-        prog.release()
         if has_k7:
             line["kernel"] = _kernel_alone(fs, cfg, st.pub.offset, pts, msk, poses, valid,
                                            reps)

@@ -145,12 +145,12 @@ def run_leg(tree: str, leg: str, log_path: str, tag: str) -> dict:
             if solves else None,
             "fused_hits": back.num_fused_hits, "fused_misses": back.num_fused_misses,
             **{k: getattr(diag, k) for k in (
-                "closure_path", "rebuild_path", "eager_rebuilds", "solve_lm_iters",
-                "solve_cg_steps", "closure_capture_s") if hasattr(diag, k)},
+                "closure_path", "solve_lm_iters", "solve_cg_steps", "closure_capture_s")
+                if hasattr(diag, k)},
             "programs": {k: v for k, v in getattr(diag, "captures_by_key", {}).items()
-                         if k.startswith(("solve_", "rebuild_"))},
+                         if k.startswith("solve_")},
             "program_replays": {k: v for k, v in getattr(diag, "replays_by_key", {}).items()
-                                if k.startswith(("solve_", "rebuild_"))}}
+                                if k.startswith("solve_")}}
 
 
 def padded_loop_graph(spa, bn: int, dev, pe: int | None = None):

@@ -20,7 +20,7 @@ none does. After the harness's own lines it prints, traced, ``{"stages":
 ``{"spans": {metric: value}}`` (the per-layer numbers below) and
 ``{"idle_gaps_named": [[name, seconds], ...]}``; traced or not,
 ``{"closures": ...}``, the window's closure calls split by whether they
-captured a solve or rebuild program (``closure_split``), and
+captured a solve program (``closure_split``), and
 ``{"engines": ...}``, at each new engine the engines still alive, the
 card's allocated bytes and the peak so far.
 
@@ -116,25 +116,24 @@ def span_metrics(ctx: dict, copies_s: float) -> dict:
 
 
 def closure_split(records: list) -> dict:
-    """The closure calls (``{"ms", "captured", "capture_ms", "eager"}``
-    each: the call's host ms less the check's pauses, the programs it
-    captured, the ms its captures took, whether it rebuilt the maps eagerly)
-    split into those that captured a solve or rebuild program, those that
-    rebuilt eagerly (a bucket's first correction) and those that replayed
-    only: count, mean and median ms, and the mean of the captures' ms."""
+    """The closure calls (``{"ms", "captured", "capture_ms"}`` each: the
+    call's host ms less the check's pauses, the solve programs it captured,
+    the ms its captures took) split into those that captured a solve
+    program and those that did not: count, mean and median ms, and the
+    mean of the captures' ms; and the mean and median over all of them."""
     import statistics
 
     out = {}
     for kind, rows in (("capture", [r for r in records if r["captured"]]),
-                       ("eager", [r for r in records if not r["captured"] and r["eager"]]),
-                       ("replay", [r for r in records if not r["captured"]
-                                   and not r["eager"]])):
+                       ("no_capture", [r for r in records if not r["captured"]])):
         ms = [r["ms"] for r in rows]
         out[kind] = {"n": len(rows), "mean_ms": statistics.fmean(ms) if ms else None,
                      "median_ms": statistics.median(ms) if ms else None,
                      "capture_ms_mean": statistics.fmean(r["capture_ms"] for r in rows)
                      if rows else None}
-    out["all_mean_ms"] = statistics.fmean(r["ms"] for r in records) if records else None
+    ms = [r["ms"] for r in records]
+    out["all_mean_ms"] = statistics.fmean(ms) if ms else None
+    out["all_median_ms"] = statistics.median(ms) if ms else None
     out["capture_share"] = out["capture"]["n"] / len(records) if records else None
     return out
 
@@ -188,7 +187,7 @@ def run_cell(argv, _test=None) -> int:
     card = torch.cuda.is_available()
 
     def captured(d):
-        return {k: v for k, v in d.captures_by_key.items() if k.startswith(("solve_", "rebuild_"))}
+        return {k: v for k, v in d.captures_by_key.items() if k.startswith("solve_")}
 
     class Engine(tengine.SlamEngine):
         def __init__(self, *a, **k):
@@ -202,15 +201,14 @@ def run_cell(argv, _test=None) -> int:
 
         def process(self, *a, **k):
             d, rec = self.diag, self.rec
-            c0, k0, s0, e0 = d.loop_closures, captured(d), d.closure_capture_s, d.eager_rebuilds
+            c0, k0, s0 = d.loop_closures, captured(d), d.closure_capture_s
             p0, t0 = (rec.pause if rec is not None else 0.0), time.perf_counter()
             out = super().process(*a, **k)
             if d.loop_closures > c0:
                 dt = time.perf_counter() - t0 - ((rec.pause if rec is not None else 0.0) - p0)
                 closures.append({"ms": 1e3 * dt,
                                  "captured": sorted(set(captured(d).items()) - set(k0.items())),
-                                 "capture_ms": 1e3 * (d.closure_capture_s - s0),
-                                 "eager": d.eager_rebuilds > e0})
+                                 "capture_ms": 1e3 * (d.closure_capture_s - s0)})
             return out
 
     tengine.SlamEngine = Engine

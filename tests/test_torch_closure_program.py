@@ -3,9 +3,10 @@ pose graph padded to JAX's buckets (``as_solver_data``) and solved padded;
 the masked LM loop against JAX's two ``while_loop``s run as host loops, bit
 for bit, with the CG steps they take; the correction rebuild on the store
 padded to JAX's bucket (``all_arrays``) against JAX's ``_rebuild_all_maps``
-and against a per-scan loop over the exact scans; the programs' keys; when
-a correction rebuilds eagerly and when through its program; the pub-only
-clip rebuild on the exact rows; ``warm_backend``'s buckets. Inputs are made
+and against a per-scan loop over the exact scans; the solve programs' keys;
+the correction rebuild, eager from the exact rows into the state's planes,
+across a pub growth and a mirror doubling; the pub-only clip rebuild on the
+exact rows; ``warm_backend``'s buckets. Inputs are made
 with numpy from a seed (graphs round a circle, scans of
 ``tests/data/golden_icra.npz``)."""
 
@@ -316,64 +317,70 @@ def _engine(icra, k=12):
     return eng
 
 
-def test_rebuild_program_keys(icra):
-    """The same bucket gives the same program; another bucket its own; a
-    pub-map growth and a mirror doubling each give a new one. On the CPU a
-    program runs eagerly, and its rebuild equals the eager function's."""
+def test_rebuild_after_growth_and_doubling_equals_exact_rows(icra):
+    """A correction's rebuild after a pub-map growth and after a mirror
+    doubling writes the maps that ``_rebuild_all_maps`` makes from the
+    exact stored rows, bit for bit, into the state's planes (the grown pub
+    map's new ones)."""
     eng = _engine(icra)
-    assert eng.diag.rebuild_path == "eager: cpu tensors"
     assert eng.diag.closure_path == "eager: cpu tensors"
     with eng._state_lock:
-        p64 = eng._rebuild_program(64)
-        assert eng._rebuild_program(64) is p64 and eng._rebuild_program(128) is not p64
-        eng._grow_pub_to(eng.fspec.pub_spec.width + 64, eng.fspec.pub_spec.height, 64, 0)
-        p_grown = eng._rebuild_program(64)
-        assert p_grown is not p64 and p_grown.key != p64.key
-        eng.store.device_arrays(reserve=eng.store._dev_cap)       # the mirror doubles
-        p_doubled = eng._rebuild_program(64)
-        assert p_doubled is not p_grown and p_doubled.key[:2] == p_grown.key[:2]
-        assert eng._rebuild_program(64) is p_doubled
-        st = eng.state
-        eng._rebuild_maps()
-        got = [t.clone() for t in (st.pub.hits, st.pub.passes, st.coarse.probs, st.fine.probs)]
-        pub, coarse, fine = (tgm.CountMap(torch.zeros_like(st.pub.hits),
-                                          torch.zeros_like(st.pub.passes), st.pub.offset),
-                             tgm.ProbMap(torch.zeros_like(st.coarse.probs), st.coarse.offset),
-                             tgm.ProbMap(torch.zeros_like(st.fine.probs), st.fine.offset))
-        teng._rebuild_all_maps(eng.fspec.pub_spec, eng.fspec.coarse_spec, eng.fspec.fine_spec,
-                               pub, coarse, fine, *eng.store.all_arrays(),
-                               *_factors(eng.config))
-    for a, b in zip(got, (pub.hits, pub.passes, coarse.probs, fine.probs)):
-        assert torch.equal(a, b)
+        for event in ("pub_growth", "mirror_doubling"):
+            if event == "pub_growth":
+                eng._grow_pub_to(eng.fspec.pub_spec.width + 64, eng.fspec.pub_spec.height,
+                                 64, 0)
+            else:
+                eng.store.device_arrays(reserve=eng.store._dev_cap)
+            held = [t.data_ptr() for t in _live_planes(eng)]
+            eng._rebuild_maps()
+            assert [t.data_ptr() for t in _live_planes(eng)] == held
+            for a, b in zip(_planes(eng), _eager_planes(eng)):
+                assert torch.equal(a, b)
+    assert eng.store._dev_cap == 2 * eng.store._DEV_CAP_START
 
 
 def test_warm_backend_buckets_reach_the_programs(icra, monkeypatch):
     """``warm_backend(solver_buckets, rebuild_buckets)``: a solve of the live
     graph padded to each solver bucket it has not outgrown (nodes ``bn``,
-    edges ``bn`` and ``2·bn``, as JAX warms them) and a rebuild program at
-    each rebuild bucket that holds the store and that its mirror holds."""
+    edges ``bn`` and ``2·bn``, as JAX warms them) and one eager rebuild of
+    the live rows padded to each rebuild bucket that holds the store and
+    that its mirror holds; the maps are restored after."""
     eng = _engine(icra)
     g = eng.backend.graph
-    seen = []
+    seen, rebuilt = [], []
     pack = TGraph.as_solver_data
+    rebuild_all = T.SlamEngine._rebuild_all
 
     def spy(self, poses, device, pad_n=None, pad_e=None):
         seen.append((pad_n, pad_e))
         return pack(self, poses, device, pad_n, pad_e)
 
+    def spy_rebuild(self, pts, msk, poses, valid):
+        rebuilt.append((pts.shape[0], int(valid.sum())))
+        return rebuild_all(self, pts, msk, poses, valid)
+
     monkeypatch.setattr(TGraph, "as_solver_data", spy)
+    monkeypatch.setattr(T.SlamEngine, "_rebuild_all", spy_rebuild)
+    before = _planes(eng)
     eng.warm_backend(solver_buckets=(64, 128), match_buckets=(1,),
                      rebuild_buckets=(8, 64, 128, 512))
     want = [(bn, be) for bn in (64, 128) for be in (bn, 2 * bn)
             if bn >= g.num_vertices and be >= len(g.edges)]
     assert seen == want and len(want) == 4
-    assert sorted(eng._rebuild_programs) == [64, 128]      # 8 too small, 512 past the mirror
+    n = len(eng.store)
+    assert rebuilt == [(64, n), (128, n)]                  # 8 too small, 512 past the mirror
+    for a, b in zip(_planes(eng), before):
+        assert torch.equal(a, b)
     assert eng.backend.num_solves == 0
 
 
-def _planes(eng):
+def _live_planes(eng):
     st = eng.state
-    return [t.clone() for t in (st.pub.hits, st.pub.passes, st.coarse.probs, st.fine.probs)]
+    return [st.pub.hits, st.pub.passes, st.coarse.probs, st.fine.probs]
+
+
+def _planes(eng):
+    return [t.clone() for t in _live_planes(eng)]
 
 
 def _eager_planes(eng):
@@ -389,28 +396,35 @@ def _eager_planes(eng):
     return [pub.hits, pub.passes, coarse.probs, fine.probs]
 
 
-def test_first_correction_rebuilds_eagerly(icra):
-    """The first correction at a key of its bucket rebuilds eagerly from the
-    exact rows (a lone closure pays no capture); the second makes the
-    bucket's program and the third calls it again. A pub growth changes the
-    key: the next correction is eager again, the one after makes a new
-    program. Every rebuild leaves the maps that ``_rebuild_all_maps`` makes
-    from the exact rows, bit for bit."""
+def test_first_correction_rebuilds_eagerly(icra, monkeypatch):
+    """Every correction, the first and those after it, across a pub growth,
+    rebuilds eagerly from the exact rows into the state's planes (the grown
+    pub map's new ones), leaves the maps that ``_rebuild_all_maps`` makes
+    from those rows, bit for bit, and captures nothing."""
     eng = _engine(icra)
     assert len(eng.store) < 64
+    rows = []
+    rebuild_all = T.SlamEngine._rebuild_all
+
+    def spy_rebuild(self, pts, msk, poses, valid):
+        rows.append((pts.shape[0], bool(valid.all())))
+        return rebuild_all(self, pts, msk, poses, valid)
+
+    monkeypatch.setattr(T.SlamEngine, "_rebuild_all", spy_rebuild)
+    captures = (dict(eng.diag.captures_by_key), eng.diag.closure_capture_s)
     with eng._state_lock:
-        seen = []
         for k in range(5):
             if k == 3:
                 eng._grow_pub_to(eng.fspec.pub_spec.width + 64, eng.fspec.pub_spec.height,
                                  64, 0)
+            held = [t.data_ptr() for t in _live_planes(eng)]
             eng._rebuild_maps()
-            prog = eng._rebuild_programs.get(64)
-            fresh = prog is not None and prog.key == eng._rebuild_key(64)
-            seen.append((eng.diag.eager_rebuilds, prog.calls if fresh else None))
+            assert [t.data_ptr() for t in _live_planes(eng)] == held
             for a, b in zip(_planes(eng), _eager_planes(eng)):
                 assert torch.equal(a, b)
-    assert seen == [(1, None), (1, 1), (1, 2), (2, None), (2, 1)]
+    assert rows == [(len(eng.store), True)] * 5
+    assert (eng.diag.captures_by_key, eng.diag.closure_capture_s) == captures
+    assert not any(key.startswith("rebuild") for key in eng.diag.replays_by_key)
 
 
 def test_pub_clip_rebuild_carves_exact_rows(icra, monkeypatch):

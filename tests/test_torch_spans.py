@@ -300,16 +300,18 @@ def test_span_metrics_from_the_totals():
 
 def test_closure_split_by_capture():
     """``closure_split`` parts the closure calls into those that captured a
-    program, those that rebuilt eagerly and those that replayed only."""
-    rows = [{"ms": 300.0, "captured": [["rebuild_1024", 1]], "capture_ms": 90.0, "eager": False},
-            {"ms": 100.0, "captured": [], "capture_ms": 0.0, "eager": True},
-            {"ms": 150.0, "captured": [], "capture_ms": 0.0, "eager": False},
-            {"ms": 170.0, "captured": [], "capture_ms": 0.0, "eager": False}]
+    solve program and those that did not, and gives the mean and median of
+    all of them."""
+    rows = [{"ms": 300.0, "captured": [["solve_64x128", 1]], "capture_ms": 90.0},
+            {"ms": 100.0, "captured": [], "capture_ms": 0.0},
+            {"ms": 150.0, "captured": [], "capture_ms": 0.0},
+            {"ms": 170.0, "captured": [], "capture_ms": 0.0}]
     out = stage_spans.closure_split(rows)
     assert out["capture"] == {"n": 1, "mean_ms": 300.0, "median_ms": 300.0,
                               "capture_ms_mean": 90.0}
-    assert out["eager"]["n"] == 1 and out["eager"]["mean_ms"] == 100.0
-    assert out["replay"]["n"] == 2 and out["replay"]["mean_ms"] == 160.0
-    assert out["all_mean_ms"] == 180.0 and out["capture_share"] == 0.25
+    assert out["no_capture"] == {"n": 3, "mean_ms": 140.0, "median_ms": 150.0,
+                                 "capture_ms_mean": 0.0}
+    assert out["all_mean_ms"] == 180.0 and out["all_median_ms"] == 160.0
+    assert out["capture_share"] == 0.25
     empty = stage_spans.closure_split([])
-    assert empty["all_mean_ms"] is None and empty["replay"]["n"] == 0
+    assert empty["all_mean_ms"] is None and empty["no_capture"]["n"] == 0

@@ -10,9 +10,9 @@ for bit; (b) the programs (the steps', the back end's chain batch's, the
 headline's match) under a guard that raises on every host read;
 (c) the programs' steps against the JAX engine's, carried one scan at a
 time, at ``bench/parity.py``'s per-step bars, unfused, fused and pipelined;
-(d) a store growth, a recenter and a pub growth: a new program where a
-buffer was replaced, the same program where the maps were written in place,
-and the next step equal, bit for bit, to that of an engine carried fresh
+(d) a store growth, a recenter, a pub growth and a pub clip rebuild: a new
+program where a buffer was replaced, the same program where the maps were
+written in place (equal to fresh maps from the same rows), and the next step equal, bit for bit, to that of an engine carried fresh
 into the same state."""
 
 import contextlib
@@ -339,26 +339,50 @@ def _bufs(eng, kind):
     return [(t.data_ptr(), tuple(t.shape)) for t in b]
 
 
-@pytest.mark.parametrize("event", ["store_growth", "recenter", "pub_growth"])
+@pytest.mark.parametrize("event", ["store_growth", "recenter", "pub_growth", "pub_clip"])
 def test_an_event_makes_a_new_program_or_writes_in_place(icra, event):
     """After a store capacity doubling or a pub-map growth (buffers
     replaced) every program that holds a replaced buffer is made anew and
     holds the current ones; after a recenter (the match maps written into
-    their buffers, offsets moved) every program is the same object and its
-    buffers are the state's. Either way the next step equals, bit for bit
-    (tolerance 0: summary, maps, store rows), that of an engine carried
-    fresh into the same state."""
+    their buffers, offsets moved) or a pub clip rebuild (the pub planes
+    rebuilt in place) every program is the same object and its buffers are
+    the state's, and the maps written in place equal, bit for bit, fresh
+    maps rebuilt from the same rows. Either way the next step equals, bit
+    for bit (tolerance 0: summary, maps, store rows), that of an engine
+    carried fresh into the same state."""
     eng = _port(icra)
     eng.store._DEV_CAP_START = 16
     _feed(eng, icra, range(53))
     assert eng.diag.fused_steps > 0
     before = {key: (prog, _bufs(eng, key[0])) for key, prog in eng._programs.items()}
+    in_place = event in ("recenter", "pub_clip")
     if event == "store_growth":
         eng.store.device_arrays(reserve=eng.store._dev_cap)
     elif event == "recenter":
+        rows = _spy_rows(eng, "gather")
         g = eng._shift_granule() * round(0.3 / eng._shift_granule())
         eng._rebuild_match_maps_at(eng._host_fine_off - g, eng._host_coarse_off - g)
         assert eng.diag.recenters == 1
+        cfg, st = eng.config, eng.state
+        for spec, pmap, blur in ((eng.fspec.coarse_spec, st.coarse, cfg.coarse_map_use_blur),
+                                 (eng.fspec.fine_spec, st.fine, cfg.fine_map_use_blur)):
+            fresh_map = tr.stamp_scan_batch(
+                spec, tgm.make_prob_map(spec, pmap.offset.clone(), "cpu"), *rows[0],
+                use_blur=bool(blur))
+            assert torch.equal(pmap.probs, fresh_map.probs)
+    elif event == "pub_clip":
+        rows = _spy_rows(eng, "all_arrays")
+        for t in (eng.state.pub.hits, eng.state.pub.passes):
+            t.fill_(7.0)                        # stale planes the rebuild must overwrite
+        with eng._state_lock:
+            eng._rebuild_pub()
+        cfg, pub = eng.config, eng.state.pub
+        fresh_pub = tr.rebuild_count_map(
+            eng.fspec.pub_spec, pub.offset.clone(), *rows[0], cfg.map_update_free_factor,
+            cfg.map_update_occu_factor, first_scan_extra=int(cfg.map_min_passthrough))
+        assert rows[0][0].shape[0] == len(eng.store)
+        assert torch.equal(pub.hits, fresh_pub.hits)
+        assert torch.equal(pub.passes, fresh_pub.passes)
     else:
         ps = eng.fspec.pub_spec
         eng._grow_pub_to(ps.width + 256, ps.height + 256, 128, 128)
@@ -366,8 +390,8 @@ def test_an_event_makes_a_new_program_or_writes_in_place(icra, event):
     for key, (old, old_bufs) in before.items():
         prog = eng._program(*key)
         replaced = _bufs(eng, key[0]) != old_bufs
-        assert replaced == (event != "recenter" and (event == "pub_growth"
-                                                     or key[0] != "frontend"))
+        assert replaced == (not in_place and (event == "pub_growth"
+                                              or key[0] != "frontend"))
         assert (prog is old) == (not replaced)
     k = 53
     for e in (eng, fresh):
@@ -376,6 +400,19 @@ def test_an_event_makes_a_new_program_or_writes_in_place(icra, event):
     assert np.array_equal(eng.last_summary, fresh.last_summary)
     for a, b in zip(_state(eng), _state(fresh)):
         assert np.array_equal(a, b)
+
+
+def _spy_rows(eng, name):
+    """The rows each call of the store's ``name`` returns, recorded (the
+    call itself unchanged)."""
+    rows, call = [], getattr(eng.store, name)
+
+    def spy(*a, **kw):
+        rows.append(call(*a, **kw))
+        return rows[-1]
+
+    setattr(eng.store, name, spy)
+    return rows
 
 
 def _state(eng):
